@@ -10,8 +10,13 @@ Phases (any failure raises and exits non-zero; there is no CPU path):
     slice's shape (16 images, K=640, the 75 pairs of overlap 6) and at the
     reference capacity (K=8192, 32 pairs), timed beside its bound and its
     library route (bf16 torch.bmm, then topk and max)
-  3 kernel 2 (Schur accumulation) against its plain version at the slice's
-    shape (M=16, T=16, P=2048) and at M=256, P=8192, T=16, beside its bound
+  3 kernel 2 (Schur accumulation) against its plain version at M=16, P=2048,
+    T=16 and at M=256, P=8192, T=16 (every slot live), and, after phase 6,
+    at the main path's own inputs: the bf16 slice's merged model packed as
+    the merge's global BA packs it, and every call that mapping and the
+    merge made in the bf16 slice's cold pass (recorded); two runs must be
+    bitwise equal; timed by graph replay of one call, per call in a graph
+    of 20, and eagerly (host launch included), beside its bound
   4 kernel 3 (f32 top-2 matcher, both directions in one launch) against its
     plain version at the slice's shape and at K=8192 with 32 pairs: its
     reverse argbest must equal the plain version's and its own swapped
@@ -48,6 +53,10 @@ import torch
 K1_AGREE = 0.999      # share of rows with identical decisions
 K1_NEAR_TIE = 1e-5    # every disagreement must be a near-tie this close
 K2_REL_FROB = 1e-5    # relative Frobenius error of S
+K2_REL_TERMS = 1e-6   # error of S against its f64 sum over |sum of |products||
+K2_CALLS_PER_GRAPH = 20
+K2_LIBRARY_NOTE = ("no single PyTorch call computes S: index_add_ of the 8x8 "
+                   "blocks needs them built first, T^2 per point")
 K3_AGREE = 0.999      # kernel 3: the same decision and near-tie rules
 K3_MAX_ABS = 1e-5     # best and second
 
@@ -97,20 +106,23 @@ def library_top2(pool, ai, bi):
         sim.max(dim=-2)
 
 
-def cuda_ms(fn, reps=10, graph=False):
+def cuda_ms(fn, reps=10, graph=False, calls=1):
     """Median milliseconds of one fn() on the card (CUDA events, warmed up).
 
     graph=False times an eager call, host launch gaps included. graph=True
-    captures fn() once in a CUDA graph and times its replays: the device's
-    time for the call's work, with no host gaps (kernels and library
-    routes; the plain versions run eagerly)."""
+    captures ``calls`` calls of fn() in a CUDA graph and times its replays,
+    divided by ``calls`` (kernels and library routes; the plain versions run
+    eagerly). With calls=1 the time still holds the graph's own launch, which
+    matters only for calls of a few microseconds; a graph of many calls gives
+    the device's time per call back to back."""
     fn()
     torch.cuda.synchronize()
     run = fn
     if graph:
         g = torch.cuda.CUDAGraph()
         with torch.cuda.graph(g):
-            fn()
+            for _ in range(calls):
+                fn()
         run = g.replay
         run()
         torch.cuda.synchronize()
@@ -122,7 +134,7 @@ def cuda_ms(fn, reps=10, graph=False):
         run()
         b.record()
         b.synchronize()
-        times.append(a.elapsed_time(b))
+        times.append(a.elapsed_time(b) / (calls if graph else 1))
     return statistics.median(times)
 
 
@@ -210,38 +222,127 @@ def check_kernel1(dev, n_img, K, pairs, seed):
 # phase 3: kernel 2
 # ---------------------------------------------------------------------------
 
-def check_kernel2(dev, M, P, T, seed):
+def _kernel2_measure(cam_idx, Wc, Vinv, M, one_call_replay=True):
+    """Kernel 2 against its plain version on one set of inputs: relative
+    Frobenius error, two runs bitwise equal, times, bound."""
     from scanner_colmap_tpu_torch.kernels import schur as sk
+
+    call = lambda: sk.schur_accumulate(cam_idx, Wc, Vinv, M)  # noqa: E731
+    S, S_again = call(), call()
+    R = sk.schur_accumulate_plain(cam_idx, Wc, Vinv, M)
+    # the f64 sum, and the norm of the sum of the products' magnitudes
+    # (the scale of any f32 summation's rounding error)
+    R64 = sk.schur_accumulate_plain(cam_idx, Wc.double(), Vinv.double(), M)
+    terms = sk.schur_accumulate_plain(cam_idx, Wc.double().abs(), Vinv.double().abs(),
+                                      M).norm().item()
+    torch.cuda.synchronize()
+    # per point with L live slots: Wc[t] Vinv (8x3x3) for each, then
+    # (Wc Vinv)[t1] Wc[t2]^T (8x3x8) for each pair, in f32
+    live = (Wc != 0).flatten(2).any(-1).sum(1).double()
+    flops = 2 * (72 * live + 192 * live * live).sum().item()
+    nbytes = (cam_idx.numel() * 4 + Wc.numel() * 4 + Vinv.numel() * 4
+              + S.numel() * 4)
+    b, by = bound(nbytes, flops, F32_FLOPS)
+    return {"rel": ((S - R).norm() / R.norm()).item(), "max_abs_err": (S - R).abs().max().item(),
+            "err_terms": (S.double() - R64).norm().item() / terms,
+            "plain_err_terms": (R.double() - R64).norm().item() / terms,
+            "max_abs": R.abs().max().item(), "bitwise": torch.equal(S, S_again),
+            "ms": cuda_ms(call, graph=True) if one_call_replay else None,
+            "ms_in_graph": cuda_ms(call, graph=True, calls=K2_CALLS_PER_GRAPH),
+            "eager_ms": cuda_ms(call),
+            "plain_ms": cuda_ms(lambda: sk.schur_accumulate_plain(cam_idx, Wc, Vinv, M)),
+            "bound_ms": b, "bound_by": by, "live": live}
+
+
+def check_kernel2(label, cam_idx, Wc, Vinv, M):
+    """Kernel 2 on one set of inputs: the checks and times of
+    ``_kernel2_measure``, timed by graph replay of one call, per call in a
+    graph of 20 and eagerly (host launch included)."""
+    from scanner_colmap_tpu_torch.kernels import schur as sk
+
+    P, T = cam_idx.shape
+    m = _kernel2_measure(cam_idx, Wc, Vinv, M)
+    y = {"bound_ms": m["bound_ms"], "bound_by": m["bound_by"],
+         "share_of_bound": m["bound_ms"] / m["ms"], "library_ms": None,
+         "library_note": K2_LIBRARY_NOTE}
+    _, tiles, splits = sk.launch_plan(M, P)
+    log(f"kernel2 {label}: M={M} P={P} T={T}, mean live slots per point "
+        f"{m['live'].mean().item():.3f}, plan {tiles} tiles x {splits} splits; rel "
+        f"Frobenius err {m['rel']:.3g} (max abs err {m['max_abs_err']:.3g} of max |S| "
+        f"{m['max_abs']:.3g}), two runs bitwise equal {m['bitwise']}, kernel "
+        f"{m['ms']:.4f} ms (graph replay of one call), {m['ms_in_graph']:.4f} ms (per "
+        f"call in a graph of {K2_CALLS_PER_GRAPH}), {m['eager_ms']:.4f} ms (eager, host "
+        f"launch included), plain {m['plain_ms']:.3f} ms, bound {y['bound_ms']:.5f} ms "
+        f"({y['bound_by']}), share of bound {y['share_of_bound']:.4f}")
+    if not m["rel"] <= K2_REL_FROB or not m["bitwise"]:
+        raise AssertionError(f"kernel 2 disagrees with its plain version or "
+                             f"with itself ({label})")
+    return {"max_abs_err": m["max_abs_err"], "ms": m["ms"], "ms_in_graph": m["ms_in_graph"],
+            "eager_ms": m["eager_ms"], "plain_ms": m["plain_ms"], "M": M, "P": P, "T": T,
+            "mean_live_slots": m["live"].mean().item(), **y}
+
+
+def check_kernel2_calls(stage, calls):
+    """Kernel 2 on every call a stage of the slice made (recorded in the
+    cold pass): two runs bitwise equal, and S within K2_REL_TERMS of the
+    f64 sum, relative to the norm of the sum of the products' magnitudes:
+    in mapping's calls the products cancel (|S| falls to 1e-5 of that
+    norm), so even the plain version in f32 strays from the f64 sum by
+    more than 1e-5 of |S|. The times and bounds
+    are sums over the calls (ms: per call in a graph of 20)."""
+    from scanner_colmap_tpu_torch.kernels import schur as sk
+
+    if not calls:
+        raise AssertionError(f"no kernel 2 calls recorded in {stage}")
+    ms = [_kernel2_measure(*c, one_call_replay=False) for c in calls]
+    bad = [i for i, m in enumerate(ms) if not (m["err_terms"] <= K2_REL_TERMS and m["bitwise"])]
+    tot = {k: sum(m[k] for m in ms) for k in ("ms_in_graph", "eager_ms", "plain_ms", "bound_ms")}
+    by = statistics.mode(m["bound_by"] for m in ms)
+    shapes = sorted({(M, *cam.shape, sk.launch_plan(M, cam.shape[0])[2])
+                     for cam, _, _, M in calls})
+    live = torch.cat([m["live"] for m in ms])
+    pts_live = statistics.mean((m["live"] > 0).double().mean().item() for m in ms)
+    log(f"kernel2 {stage} calls: {len(calls)} calls, (M, P, T, splits) {shapes}, share "
+        f"of points with a live slot {pts_live:.3f}, live slots per such point "
+        f"{live[live > 0].mean().item():.3f}; worst error against the f64 sum, over "
+        f"the norm of the summed magnitudes: kernel {max(m['err_terms'] for m in ms):.3g}, "
+        f"plain version {max(m['plain_err_terms'] for m in ms):.3g}; worst rel "
+        f"Frobenius err against the plain version {max(m['rel'] for m in ms):.3g}; "
+        f"every call's two runs bitwise equal "
+        f"{all(m['bitwise'] for m in ms)}; sums over the calls: kernel "
+        f"{tot['ms_in_graph']:.4f} ms (per call in a graph of {K2_CALLS_PER_GRAPH}), "
+        f"{tot['eager_ms']:.4f} ms (eager), plain {tot['plain_ms']:.3f} ms, bound "
+        f"{tot['bound_ms']:.5f} ms ({by})")
+    if bad:
+        raise AssertionError(f"kernel 2 disagrees with its plain version or with "
+                             f"itself on {stage} calls {bad[:10]}")
+    return {"calls": len(calls), "shapes": shapes, "points_with_live_slot": pts_live,
+            "max_abs_err": max(m["max_abs_err"] for m in ms), "ms": tot["ms_in_graph"],
+            "eager_ms": tot["eager_ms"], "plain_ms": tot["plain_ms"],
+            "bound_ms": tot["bound_ms"], "bound_by": by,
+            "share_of_bound": tot["bound_ms"] / tot["ms_in_graph"], "library_ms": None}
+
+
+def check_kernel2_synthetic(dev, M, P, T, seed):
+    """Kernel 2 on ``ba.synthetic_bundle``: every slot live."""
     from scanner_colmap_tpu_torch.ops import ba
 
     params, obs, cfg = ba.synthetic_bundle(M=M, P=P, T=T, seed=seed, device=dev)
-    cam_idx, Wc, Vinv = ba.schur_inputs(params, obs, cfg)
-    S = sk.schur_accumulate(cam_idx, Wc, Vinv, M)
-    S_again = sk.schur_accumulate(cam_idx, Wc, Vinv, M)
-    R = sk.schur_accumulate_plain(cam_idx, Wc, Vinv, M)
-    torch.cuda.synchronize()
-    rel = ((S - R).norm() / R.norm()).item()
-    err = (S - R).abs().max().item()
-    # the atomics add in a run-dependent order: report how far two runs differ
-    rerun = (S - S_again).abs().max().item()
-    ms = cuda_ms(lambda: sk.schur_accumulate(cam_idx, Wc, Vinv, M), graph=True)
-    plain_ms = cuda_ms(lambda: sk.schur_accumulate_plain(cam_idx, Wc, Vinv, M))
-    # per point: Wc[t] Vinv (8x3x3) for each t, then (Wc Vinv)[t1] Wc[t2]^T
-    # (8x3x8) for each (t1, t2), in f32
-    flops = 2 * P * (72 * T + 192 * T * T)
-    nbytes = (cam_idx.numel() * 4 + Wc.numel() * 4 + Vinv.numel() * 4
-              + S.numel() * 4)
-    y = yardsticks(ms, nbytes, flops, F32_FLOPS, None)
-    y["library_note"] = ("no single PyTorch call computes S: index_add_ of the "
-                         "8x8 blocks needs them built first, T^2 per point")
-    log(f"kernel2 M={M} P={P} T={T}: rel Frobenius err {rel:.3g} (max abs "
-        f"err {err:.3g} of max |S| {R.abs().max().item():.3g}; two kernel runs "
-        f"differ by at most {rerun:.3g}), kernel {ms:.4f} ms, plain "
-        f"{plain_ms:.3f} ms, bound {y['bound_ms']:.5f} ms ({y['bound_by']}), "
-        f"share of bound {y['share_of_bound']:.4f}")
-    if not rel <= K2_REL_FROB:
-        raise AssertionError(f"kernel 2 disagrees with its plain version at M={M}")
-    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, **y}
+    return check_kernel2("synthetic", *ba.schur_inputs(params, obs, cfg), M)
+
+
+def check_kernel2_merge(dev, model):
+    """Kernel 2 on the main path's own inputs: the merged model packed as
+    the merge's global BA packs it (gauge and loss as ``global_refine``)."""
+    from scanner_colmap_tpu_torch.engine.bundle_io import pack_bundle_flat
+    from scanner_colmap_tpu_torch.ops import ba
+
+    cam_in, pt_in, obs_in, _ = pack_bundle_flat(model, model.registered_image_ids)
+    cam_in[0, 12:18] = 0.0
+    cam_in[1, 15] = 0.0
+    params, obs, cfg, lam = ba.flat_problem(cam_in, pt_in, obs_in, [1.0, 1.0, 4.0], dev)
+    return check_kernel2("merge inputs", *ba.schur_inputs(params, obs, cfg, lam),
+                         cam_in.shape[0])
 
 
 # ---------------------------------------------------------------------------
@@ -341,11 +442,14 @@ def check_model(name, model, gt, n_submodels):
     return ate
 
 
-def run_slice(dev, frames, gt, root, precision):
+def run_slice(dev, frames, gt, root, precision, record=None):
     """One cold and one warm pass of the five stages. The warm pass is the
     main path: every launch count is set to 0 just before it and read just
-    after, with the per-stage launches recorded on the way."""
+    after, with the per-stage launches recorded on the way. With a list
+    ``record``, the cold pass appends to it (stage, (cam_idx, Wc, Vinv, M))
+    of every kernel 2 call, copied as the BA passed them."""
     from scanner_colmap_tpu_torch import kernels
+    from scanner_colmap_tpu_torch.ops import ba
     from scanner_colmap_tpu_torch.pipeline import ArtifactStore, stages
 
     cfg = slice_config(root, precision)
@@ -353,12 +457,21 @@ def run_slice(dev, frames, gt, root, precision):
     stages.prepare_images(cfg, store, frames=[(f, gt["focal"]) for f in frames])
     steps = [("extraction", stages.run_extraction), ("matching", stages.run_matching),
              ("mapping", stages.run_mapping), ("merge", stages.run_merge)]
-    times = {}
+    times, cold = {}, {}
+    schur = ba.schur_accumulate
     for name, fn in steps:                       # cold pass
-        t = time.time()
-        fn(cfg, store, device=dev)
-        torch.cuda.synchronize()
-        times[f"{name}_cold_s"] = time.time() - t
+        if record is not None:
+            def recorder(cam_idx, Wc, Vinv, M, stage=name):
+                record.append((stage, (cam_idx.clone(), Wc.clone(), Vinv.clone(), M)))
+                return schur(cam_idx, Wc, Vinv, M)
+            ba.schur_accumulate = recorder
+        try:
+            t = time.time()
+            cold[name] = fn(cfg, store, device=dev)
+            torch.cuda.synchronize()
+            times[f"{name}_cold_s"] = time.time() - t
+        finally:
+            ba.schur_accumulate = schur
     outs, per_stage = {}, {}
     kernels.reset_launch_counts()
     for name, fn in steps:                       # warm pass: the main path
@@ -384,6 +497,7 @@ def run_slice(dev, frames, gt, root, precision):
                "stage_seconds": {k: round(v, 4) for k, v in times.items()}}
     graph = store.read_manifest("mapping")["meta"]["graph"]
     summary["correspondence_graph"] = graph
+    summary["warm_model_equals_cold"] = same_model(model, cold["merge"])
     log(f"slice {precision}: " + json.dumps(summary))
     log(f"slice {precision}: the mapper used the {graph} correspondence graph; "
         f"main-path launches per stage: {json.dumps(per_stage)}")
@@ -392,7 +506,19 @@ def run_slice(dev, frames, gt, root, precision):
         raise AssertionError(f"{matcher} was not launched in the {precision} matching pass")
     if per_stage["merge"]["schur"] <= 0:
         raise AssertionError("schur was not launched inside run_merge")
-    return cfg, store, launches
+    return cfg, store, launches, model
+
+
+def same_model(a, b):
+    """Whether two passes gave bitwise the same model: registered images,
+    poses and points (kernel 2 is deterministic; the BA's other camera sums
+    use index_add_, which adds with atomics on the card)."""
+    ids = sorted(a.registered_image_ids)
+    if ids != sorted(b.registered_image_ids) or a.points3D.keys() != b.points3D.keys():
+        return False
+    return all(np.array_equal(a.images[i].qvec, b.images[i].qvec)
+               and np.array_equal(a.images[i].tvec, b.images[i].tvec) for i in ids) and all(
+        np.array_equal(p.xyz, b.points3D[k].xyz) for k, p in a.points3D.items())
 
 
 def extra_matching(dev, gt, bf16_run, f32_run):
@@ -400,7 +526,7 @@ def extra_matching(dev, gt, bf16_run, f32_run):
     through mapping and merge."""
     from scanner_colmap_tpu_torch.pipeline import stages
 
-    cfg, store, _ = bf16_run
+    cfg, store = bf16_run[:2]
     cfg.matching.execution, cfg.matching.bank_images = "banked", 5
     stages.run_matching(cfg, store, device=dev, out_table="matching_banked")
     rows = {}
@@ -419,7 +545,7 @@ def extra_matching(dev, gt, bf16_run, f32_run):
     if not same or n_banks < 2:
         raise AssertionError("bf16 banked and resident tables differ on the card")
 
-    cfg, store, _ = f32_run
+    cfg, store = f32_run[:2]
     cfg.matching.guided_matching = cfg.matching.multiple_models = True
     t = time.time()
     n_rows = stages.run_matching(cfg, store, device=dev)
@@ -461,8 +587,8 @@ def main():
     chain = [(a, a + 1) for a in range(32)]
     res = {"pair_match": check_kernel1(dev, 16, 640, window, seed=0)}
     res["pair_match"]["K8192"] = check_kernel1(dev, 33, 8192, chain, seed=1)
-    res["schur"] = check_kernel2(dev, 16, 2048, 16, seed=0)
-    res["schur"]["M256"] = check_kernel2(dev, 256, 8192, 16, seed=1)
+    res["schur"] = check_kernel2_synthetic(dev, 16, 2048, 16, seed=0)
+    res["schur"]["M256"] = check_kernel2_synthetic(dev, 256, 8192, 16, seed=1)
     res["top2"] = check_kernel3(dev, 16, 640, window, seed=0)
     res["top2"]["K8192"] = check_kernel3(dev, 33, 8192, chain, seed=1)
 
@@ -471,9 +597,15 @@ def main():
                                       num_blobs=500, seed=3)
     log(f"slice: rendered 16 frames in {time.time() - t0:.1f} s")
     with tempfile.TemporaryDirectory(prefix="smoke_store_") as root:
-        bf16_run = run_slice(dev, frames, gt, os.path.join(root, "bf16"), "bf16")
+        recorded = []
+        bf16_run = run_slice(dev, frames, gt, os.path.join(root, "bf16"), "bf16",
+                             record=recorded)
         f32_run = run_slice(dev, frames, gt, os.path.join(root, "f32"), "f32")
         extra_matching(dev, gt, bf16_run, f32_run)
+    res["schur"]["merge"] = check_kernel2_merge(dev, bf16_run[3])
+    for stage in ("mapping", "merge"):
+        res["schur"][f"{stage}_calls"] = check_kernel2_calls(
+            stage, [c for s, c in recorded if s == stage])
     # each kernel's main-path count comes from the run whose path carries it
     launches = {"pair_match": bf16_run[2]["pair_match"], "schur": f32_run[2]["schur"],
                 "top2": f32_run[2]["top2"]}

@@ -202,7 +202,8 @@ def _build_normal_eqs(params, obs, cfg, lam):
     g_c = -_segsum_cam(torch.einsum("ptri,ptr->pti", wJc, r), obs.cam_idx, M)
 
     # point-block Schur term: kernel 2 on the unscattered coupling blocks
-    S_pt = schur_accumulate(obs.cam_idx.to(torch.int32).contiguous(), Wc, Vinv, M)
+    # (bundle_adjust makes cam_idx contiguous int32 once per solve)
+    S_pt = schur_accumulate(obs.cam_idx, Wc, Vinv, M)
     WVg = torch.einsum("ptij,pj->pti", Wc, torch.einsum("pij,pj->pi", Vinv, g_p))
     rhs_pt = _segsum_cam(WVg, obs.cam_idx, M).reshape(MC)
 
@@ -301,6 +302,7 @@ def bundle_adjust(params: BundleParams, obs: BundleObs, cfg: BundleConfig,
 
     Returns (params, info) with info = {initial_cost, final_cost,
     iterations, mean_reproj_px, num_obs, final_lambda} as tensors."""
+    obs = dataclasses.replace(obs, cam_idx=obs.cam_idx.to(torch.int32).contiguous())
     cost0, _, _ = robust_cost(params, obs, cfg)
     p, cost = params, cost0
     lam = torch.tensor(initial_lambda, dtype=params.xyz.dtype,
@@ -334,6 +336,34 @@ NUM_CAM_IN = 22  # qvec4 t3 logf k1 cc2 cam_valid pose_free6 plogf pk1 pwf pwk
 NUM_CAM_IN_TIED = 23
 
 
+def flat_problem(cam_in, pt_in, obs_in, scal_in, device: torch.device):
+    """(params, obs, cfg, initial_lambda) on ``device`` from the flat layout
+    of ``bundle_adjust_flat`` (numpy arrays or tensors)."""
+    def f32(x):
+        return torch.as_tensor(np.asarray(x, np.float32), device=device)
+
+    cam_in, pt_in = f32(cam_in), f32(pt_in)
+    scal = np.zeros(4, np.float32)
+    scal[:len(np.asarray(scal_in))] = np.asarray(scal_in, np.float32)
+    obs_np = np.asarray(obs_in)
+    obs = f32(obs_np)
+    uv = obs[..., 1:3] * (1.0 / 16.0) if obs_np.dtype == np.uint16 else obs[..., 1:3]
+    params = BundleParams(qvec=cam_in[:, 0:4], tvec=cam_in[:, 4:7],
+                          log_f=cam_in[:, 7], k1=cam_in[:, 8], xyz=pt_in[:, 0:3])
+    bobs = BundleObs(cam_idx=obs[..., 0].to(torch.int32), uv=uv,
+                     valid=obs[..., 3] > 0.5)
+    cfg = BundleConfig(
+        cc=cam_in[:, 9:11], cam_valid=cam_in[:, 11] > 0.5,
+        pose_free=cam_in[:, 12:18], pt_valid=pt_in[:, 3] > 0.5,
+        refine_focal=f32(scal[0]) > 0.5, refine_distortion=f32(scal[1]) > 0.5,
+        loss_scale=f32(scal[2]), prior_log_f=cam_in[:, 18],
+        prior_k1=cam_in[:, 19], prior_weight_f=cam_in[:, 20],
+        prior_weight_k=cam_in[:, 21],
+        cam_group=(cam_in[:, 22].to(torch.int32)
+                   if cam_in.shape[1] >= NUM_CAM_IN_TIED else None))
+    return params, bobs, cfg, float(scal[3]) if scal[3] > 0 else 1e-4
+
+
 def bundle_adjust_flat(cam_in, pt_in, obs_in, scal_in, max_iterations: int = 25,
                        chunk: int = 1024, function_tolerance: float = 1e-6,
                        solver: str = "dense", cg_iters: int = 64, device=None):
@@ -360,36 +390,10 @@ def bundle_adjust_flat(cam_in, pt_in, obs_in, scal_in, max_iterations: int = 25,
     if solver != "dense":
         raise ValueError(f"solver must be 'dense' or 'cg', got {solver!r}")
     dev = devlib.resolve(device)
-
-    def f32(x):
-        return torch.as_tensor(np.asarray(x, np.float32), device=dev)
-
-    cam_in, pt_in = f32(cam_in), f32(pt_in)
-    scal = np.zeros(4, np.float32)
-    scal[:len(np.asarray(scal_in))] = np.asarray(scal_in, np.float32)
-    obs_np = np.asarray(obs_in)
-    obs = f32(obs_np)
-    if obs_np.dtype == np.uint16:
-        uv = obs[..., 1:3] * (1.0 / 16.0)
-    else:
-        uv = obs[..., 1:3]
-    M, P = cam_in.shape[0], pt_in.shape[0]
-    params = BundleParams(qvec=cam_in[:, 0:4], tvec=cam_in[:, 4:7],
-                          log_f=cam_in[:, 7], k1=cam_in[:, 8], xyz=pt_in[:, 0:3])
-    bobs = BundleObs(cam_idx=obs[..., 0].to(torch.int32), uv=uv,
-                     valid=obs[..., 3] > 0.5)
-    cfg = BundleConfig(
-        cc=cam_in[:, 9:11], cam_valid=cam_in[:, 11] > 0.5,
-        pose_free=cam_in[:, 12:18], pt_valid=pt_in[:, 3] > 0.5,
-        refine_focal=f32(scal[0]) > 0.5, refine_distortion=f32(scal[1]) > 0.5,
-        loss_scale=f32(scal[2]), prior_log_f=cam_in[:, 18],
-        prior_k1=cam_in[:, 19], prior_weight_f=cam_in[:, 20],
-        prior_weight_k=cam_in[:, 21],
-        cam_group=(cam_in[:, 22].to(torch.int32)
-                   if cam_in.shape[1] >= NUM_CAM_IN_TIED else None))
+    params, bobs, cfg, lam0 = flat_problem(cam_in, pt_in, obs_in, scal_in, dev)
+    M, P = params.qvec.shape[0], params.xyz.shape[0]
     p, info = bundle_adjust(params, bobs, cfg, max_iterations=max_iterations,
-                            initial_lambda=float(scal[3]) if scal[3] > 0 else 1e-4,
-                            function_tolerance=function_tolerance)
+                            initial_lambda=lam0, function_tolerance=function_tolerance)
     cam = torch.cat([p.qvec, p.tvec, p.log_f[:, None], p.k1[:, None]], dim=1)
     stats = torch.stack([torch.as_tensor(info[k], dtype=torch.float32, device=dev)
                          for k in ("initial_cost", "final_cost", "iterations",

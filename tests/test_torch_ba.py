@@ -11,6 +11,8 @@
   when the relative cost change sits near the tolerance).
 """
 
+import inspect
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -49,6 +51,56 @@ def test_plain_schur_matches_pallas_and_xla(rng):
     assert _rel(s_t, s_pal) <= 1e-5
     s_dense = schur.schur_dense(torch.from_numpy(B), torch.from_numpy(Vinv)).numpy()
     assert _rel(s_dense, s_xla) <= 1e-5
+
+
+@pytest.mark.parametrize("M,P,T", [(16, 512, 6), (32, 1024, 4)])
+def test_plain_schur_duplicates_and_dead_points(M, P, T):
+    # tracks that see one camera two or three times, and a run of all-dead
+    # points (the engines' P padding, cam_idx 0 with Wc = 0)
+    g = np.random.default_rng(M + P)
+    cam = g.integers(0, M, (P, T)).astype(np.int32)
+    cam[::2, 1] = cam[::2, 0]
+    cam[::5, 2] = cam[::5, 0]
+    Wc = g.normal(size=(P, T, 8, 3)).astype(np.float32)
+    cam[P - P // 4:] = 0
+    Wc[P - P // 4:] = 0
+    V = g.normal(size=(P, 3, 3)).astype(np.float32)
+    Vinv = V + V.transpose(0, 2, 1)
+    B = np.zeros((P, M, 8, 3), np.float32)
+    for t in range(T):
+        np.add.at(B, (np.arange(P), cam[:, t]), Wc[:, t])
+    B = B.reshape(P, M * 8, 3)
+    s_pal = np.asarray(pallas_ba.schur_accumulate(jnp.asarray(B), jnp.asarray(Vinv),
+                                                  interpret=True))
+    s_xla = np.asarray(pallas_ba.schur_accumulate_xla(jnp.asarray(B),
+                                                      jnp.asarray(Vinv), chunk=256))
+    s_t = schur.schur_accumulate(torch.from_numpy(cam), torch.from_numpy(Wc),
+                                 torch.from_numpy(Vinv), M).numpy()
+    assert _rel(s_t, s_xla) <= 1e-5
+    assert _rel(s_t, s_pal) <= 1e-5
+
+
+@pytest.mark.parametrize("M", [1, 4, 16, 20, 40, 64, 128, 256, 1000])
+def test_schur_launch_plan_covers_every_block_once(M):
+    # the kernel's grid depends on (M, P) only; its tiles R1 <= R2 and
+    # their mirrors cover each (c1, c2) camera block of S exactly once
+    assert list(inspect.signature(schur.launch_plan).parameters) == ["M", "P"]
+    for P in (0, 1, 100, 512, 2048, 8192, 100000):
+        windows, tiles, splits = schur.launch_plan(M, P)
+        assert (windows, tiles, splits) == schur.launch_plan(M, P)
+        assert windows * schur.WINDOW >= M > (windows - 1) * schur.WINDOW
+        assert splits == 1 or (tiles * splits <= schur.MAX_SPLIT_BLOCKS
+                               and splits <= -(-P // schur.MIN_SPLIT_POINTS))
+        count = np.zeros((M, M), int)
+        for tile in range(tiles):
+            r1, r2 = schur.tile_windows(windows, tile)
+            assert 0 <= r1 <= r2 < windows
+            c1 = np.arange(r1 * schur.WINDOW, min(M, (r1 + 1) * schur.WINDOW))
+            c2 = np.arange(r2 * schur.WINDOW, min(M, (r2 + 1) * schur.WINDOW))
+            count[np.ix_(c1, c2)] += 1
+            if r1 != r2:
+                count[np.ix_(c2, c1)] += 1
+        assert (count == 1).all()
 
 
 def _problem(tied: bool):

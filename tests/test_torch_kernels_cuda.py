@@ -6,8 +6,9 @@ They import no jax, so they run on a machine without it:
 
 Tolerances: kernel 1's row reductions are f32 sums of exact bf16 products
 (on the tensor cores), so they agree with the plain f32 matmul to 1e-6 and
-the decisions agree on >= 99.9% of rows; kernel 2 adds with atomics in a
-run-dependent order, so S agrees at 1e-5 relative Frobenius error; kernel 3
+the decisions agree on >= 99.9% of rows; kernel 2 sums the same f32
+products as its plain version in another (but fixed) order, so S agrees at
+1e-5 relative Frobenius error and two runs are bitwise equal; kernel 3
 sums f32 products in another order than the plain matmul, so best and
 second agree to 1e-5 and argbest on >= 99.9% of rows; its reverse argbest
 equals the plain version's and its own swapped launch's argbest exactly
@@ -61,19 +62,53 @@ def test_pair_match_kernel_matches_plain(dev, K):
     assert (out[3] == ref[3]).float().mean().item() >= 0.999
 
 
-@pytest.mark.parametrize("M,P,T", [(4, 64, 4), (16, 2048, 16)])
+def _schur_inputs(M, P, T, seed, dev):
+    """Random blocks with tracks that see one camera twice, dead slots and
+    a run of all-dead points (the P padding of the engines)."""
+    g = np.random.default_rng(seed)
+    cam = g.integers(0, M, (P, T)).astype(np.int32)
+    cam[::3, 1 % T] = cam[::3, 0]                  # one camera seen twice
+    Wc = g.normal(size=(P, T, 8, 3)).astype(np.float32)
+    Wc[:, T - 1] *= g.uniform(size=(P, 1, 1)) > 0.5  # dead slots
+    Wc[P // 2: P // 2 + P // 8] = 0                # all-dead points
+    V = g.normal(size=(P, 3, 3)).astype(np.float32)
+    return (torch.tensor(cam, device=dev), torch.tensor(Wc, device=dev),
+            torch.tensor(V + V.transpose(0, 2, 1), device=dev))
+
+
+@pytest.mark.parametrize("M,P,T", [(4, 64, 4), (16, 2048, 16), (20, 300, 6),
+                                   (40, 500, 8), (16, 256, 32), (256, 4096, 16)])
 def test_schur_kernel_matches_plain(dev, M, P, T):
-    g = np.random.default_rng(P)
-    cam = torch.tensor(g.integers(0, M, (P, T)), dtype=torch.int32, device=dev)
-    Wc = torch.tensor(g.normal(size=(P, T, 8, 3)), dtype=torch.float32, device=dev)
-    V = g.normal(size=(P, 3, 3))
-    Vinv = torch.tensor(V + V.transpose(0, 2, 1), dtype=torch.float32, device=dev)
+    # M = 4, 20, 40: ragged last window; M = 256: 136 tiles, no split
+    cam, Wc, Vinv = _schur_inputs(M, P, T, P + M, dev)
     before = tschur.schur_accumulate.launches
     S = tschur.schur_accumulate(cam, Wc, Vinv, M)
+    again = tschur.schur_accumulate(cam, Wc, Vinv, M)
     R = tschur.schur_accumulate_plain(cam, Wc, Vinv, M)
     torch.cuda.synchronize()
-    assert tschur.schur_accumulate.launches == before + 1
+    assert tschur.schur_accumulate.launches == before + 2
     assert ((S - R).norm() / R.norm()).item() <= 1e-5
+    assert torch.equal(S, again)
+
+
+def test_schur_kernel_ignores_cameras_out_of_range(dev):
+    M, P, T = 20, 200, 5
+    cam, Wc, Vinv = _schur_inputs(M, P, T, 7, dev)
+    bad = torch.zeros_like(cam, dtype=torch.bool)
+    bad[::4, 2], bad[1::4, 3] = True, True
+    cam_bad = torch.where(bad, torch.where(cam % 2 == 0, -1 - cam, M + cam), cam)
+    S = tschur.schur_accumulate(cam_bad, Wc, Vinv, M)
+    R = tschur.schur_accumulate_plain(cam, Wc * (~bad)[..., None, None], Vinv, M)
+    torch.cuda.synchronize()
+    assert ((S - R).norm() / R.norm()).item() <= 1e-5
+
+
+def test_schur_kernel_no_points(dev):
+    S = tschur.schur_accumulate(torch.zeros((0, 4), dtype=torch.int32, device=dev),
+                                torch.zeros((0, 4, 8, 3), device=dev),
+                                torch.zeros((0, 3, 3), device=dev), 3)
+    torch.cuda.synchronize()
+    assert S.shape == (24, 24) and not S.any()
 
 
 @pytest.mark.parametrize("K", [128, 700])
