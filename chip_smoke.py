@@ -74,21 +74,25 @@ Phases (any failure raises and exits non-zero; there is no CPU path):
     command line, where PIL imports on the card: >= 9/10 registered, ATE
     below 0.12, mean reprojection below 1.5 px, focal error below 0.05;
     phases 11 and 12 need Pillow (they fail without it)
-  12 the dense path: kernel 4 (PatchMatch's plane cost with the Jacobi
-    update) against its plain version at the coarse (96x96) and fine
-    (160x192) shapes of the 192-px / 4-source configuration and at 480x384
-    with 8 sources: cost within 1e-5, >= 99.9% of the update's decisions
-    equal (the others near-ties), two runs bitwise equal; timed by graph
-    replay beside its bound, the plain version's time and its device
-    kernels per call. Then bench.py's dense section (bench.py:455-516:
+  12 the dense path: kernel 4 (PatchMatch's plane cost and Jacobi sweep)
+    against its plain version at the coarse (96x96) and fine (160x192)
+    shapes of the 192-px / 4-source configuration and at 480x384 with 8
+    sources: the initial pass's cost, the tap-weight table and one sweep
+    (ten candidates: the state after it and each candidate's cost) bitwise
+    equal to the plain version's, two sweeps bitwise equal; one sweep call
+    timed by graph replay (per sweep and per candidate) beside its bound,
+    the plain sweep's time, the device launches per sweep call and the
+    resident blocks per SM. Then bench.py's dense section (bench.py:455-516:
     192 px, overlap 4, 7 sweeps) on the bf16 slice's store: prepare,
     patch_match cold and warm (the main path; the warm maps bitwise the
-    cold ones, kernel 4 launched once per cost call), one profiled pass
-    (device kernels per depth map), fusion, the same maps through f16
-    (the fused count within 1%), meshing; a geometric-consistency pass;
-    bench.py's reference-resolution section (bench.py:518-555: 480 px, 8
-    sources) with one map solved in row bands against its untiled map;
-    all held to the JAX package's band (tools/exp_dense_band_jax.py). Last,
+    cold ones, kernel 4 called once per initial pass and once per sweep),
+    one profiled pass (device kernels and kernel 4's device time per depth
+    map), fusion (exactly the fused count the per-candidate kernel gave),
+    the same maps through f16 (the fused count within 1%), meshing; a
+    geometric-consistency pass; bench.py's reference-resolution section
+    (bench.py:518-555: 480 px, 8 sources) with one map solved in row bands
+    against its untiled map; all held to the JAX package's band
+    (tools/exp_dense_band_jax.py). Last,
     ``cli undistort`` and ``cli all --resume`` (the dense stages at
     PipelineConfig()'s 400 px and 5 sources) on phase 11's store: surface
     median <= 0.05, fused points and faces > 0
@@ -158,14 +162,18 @@ SCALE_MIN_REGISTERED = 198
 SCALE_MAX_ATE_SPAN = 0.005  # BENCH_r05: 0.071% at 200; ATE_BAND_r05 at 1k: median 0.449%
 CLI_TIMEOUT_S = 420
 
-# kernel 4: both routes round every operation alike (bitwise equal on an H100);
-# the bar leaves room for expf and the best-half mean's order
-K4_MAX_ABS = 1e-5     # cost, and a differing decision's distance from a tie
-K4_AGREE = 0.999      # share of pixels taking the same Jacobi decision
+# kernel 4: both routes round every operation alike, so they are held to the
+# bit; a sweep evaluates K4_CANDIDATES candidate fields
+K4_CANDIDATES = 10             # 8 shifted neighbours, then K4_EXTRA given fields
+K4_EXTRA = 2                   # the perturbation and the fresh sample
 K4_OPS_PER_TAP = 9             # the tap's weight: difference, square, divide, exp, scale
 K4_OPS_PER_TAP_SOURCE = 50     # the tap's warp through p's plane, correction, moments
 K4_OPS_PER_PIXEL_SOURCE = 50   # the center warp and the NCC finish
 K4_LIBRARY_NOTE = "no single PyTorch call computes a bilateral-NCC plane cost"
+K4_DEVICE_LAUNCHES = 2         # a wrapper call: the cost pass, then the finish
+K4_PROFILE_PAD_S = 0.25        # idle seconds around one profiled sweep call
+K4_LEVELS = 2                  # per depth map: a coarse and a fine PatchMatch, one
+                               #   tap-weight table each
 
 # phase 12's bands: the JAX package's dense stages on the CPU on bench's
 # 16-image set at 192 px / 4 sources / 7 sweeps (tools/exp_dense_band_jax.py)
@@ -178,6 +186,9 @@ DENSE_MEDIAN_FACTOR = 1.25     # median <= 1.25x the band's + 0.005
 DENSE_MEDIAN_SLACK = 0.005
 DENSE_FUSED_FRAC = 0.8         # fused points >= 0.8x the band's
 F16_FUSED_TOL = 0.01           # f32 maps and the same maps through f16
+# the fused counts of the per-candidate kernel 4 on this set (bitwise the same
+# in every run): a sweep's update is the per-candidate loop's to the bit
+DENSE_FUSED_PINNED = {"192": 90176, "geom": 95677, "hires": 562755}
 DENSE_TILE_ROWS = 128          # one 480-px map in bands of 128 rows (+ 2 x 48 halo)
 DENSE_TILE_MAX_DIFF = 0.02     # median relative depth difference to its untiled map
 # the reference's recorded band on real data (PERFORMANCE.md:111: 1.0-4.8%)
@@ -1318,63 +1329,114 @@ def k4_problem(dev, H, W, S, seed):
 
 
 def k4_bound(H, W, S, taps, Hs, Ws):
-    """(bytes, operations) of one update launch: the inputs read once (ref,
-    pack, the candidate, the state) and the state written once; per
-    in-image tap K4_OPS_PER_TAP for its weight, and per (tap, source)
-    K4_OPS_PER_TAP_SOURCE, plus the center warp and the finish per (pixel,
-    source)."""
+    """(bytes, operations) of one sweep call: the inputs read once (ref,
+    pack, the extra candidates, the state) and the state written once; per
+    in-image tap K4_OPS_PER_TAP for its weight (once: it depends on the ref
+    image alone), per (tap, candidate, source) K4_OPS_PER_TAP_SOURCE, plus
+    the center warp and the finish per (pixel, candidate, source)."""
+    C = K4_CANDIDATES
     in_image = sum((W - abs(du)) * (H - abs(dv)) for du, dv in taps.offsets)
-    ops = (in_image * (K4_OPS_PER_TAP + S * K4_OPS_PER_TAP_SOURCE)
-           + H * W * S * K4_OPS_PER_PIXEL_SOURCE)
-    nbytes = H * W * 4 + S * Hs * Ws * 12 + H * W * 16 + 2 * H * W * 20 + S * 64
+    ops = (in_image * (K4_OPS_PER_TAP + C * S * K4_OPS_PER_TAP_SOURCE)
+           + C * H * W * S * K4_OPS_PER_PIXEL_SOURCE)
+    nbytes = H * W * 4 + S * Hs * Ws * 12 + K4_EXTRA * H * W * 16 + 2 * H * W * 20 + S * 64
     return nbytes, ops
+
+
+def kernel4_device(prof):
+    """(device kernels, device ms) of kernel 4's launches in a finished
+    profile, by kernel name: the cost pass, the finish, the tap-weight
+    table."""
+    n, us = 0, 0.0
+    for e in prof.key_averages():
+        if "plane_cost" in e.key or "plane_weight" in e.key:
+            n += e.count
+            us += float(e.self_device_time_total if hasattr(e, "self_device_time_total")
+                        else getattr(e, "self_cuda_time_total", 0.0))
+    return n, us / 1e3
 
 
 def check_kernel4(dev, label, H, W, S, radius=5, seed=0):
     """Kernel 4 at one shape against its plain version on the card: the
-    cost, the Jacobi update's decisions, two runs bitwise, the kernel's time
-    by graph replay beside its bound, the plain version's time and its
-    device kernels per call (torch.profiler)."""
+    initial pass's cost, the tap-weight table, one sweep of ten candidates
+    (the state after it and each candidate's cost) bitwise, two sweeps
+    bitwise; one sweep call's time by graph replay beside its bound, the
+    plain sweep's time (and its device kernels per candidate,
+    torch.profiler), the cost pass's resident blocks per SM, and the device
+    kernels torch.profiler records for one sweep call given its table, in a
+    bare window and in one padded by K4_PROFILE_PAD_S on each side
+    (reported, not asserted: late in this process a bare window records
+    none; the dense phase asserts the profiled count of a whole pass)."""
     from scanner_colmap_tpu_torch.kernels import plane_cost as pc
     from scanner_colmap_tpu_torch.ops import patch_match as pm_ops
     from scanner_colmap_tpu_torch.utils.metrics import device_work
 
     prob, (d0, n0), (d1, n1) = k4_problem(dev, H, W, S, seed)
+    _, (d2, n2), _ = k4_problem(dev, H, W, S, seed + 10)
     prep = pm_ops._prepare(prob, "field")
     taps = pc.window_taps(radius, 1, 5.0, dev)
     base = (prep.ref, prep.pack, prep.k_ref, prep.k_src, prep.R, prep.t, prep.src_valid, taps)
-    kern = pc.plane_cost(*base, d0, n0)
+    weights = pc.tap_weights(prep.ref, taps)
+    kern = pc.plane_cost(*base, d0, n0, weights=weights)
     plain = pc.plane_cost_plain(*base, d0, n0)
-    again = pc.plane_cost(*base, d0, n0)
     err = (kern - plain).abs().max().item()
-    bitwise = torch.equal(kern, again)
-    # one Jacobi step from each route's state
-    sk = [d0.clone(), n0.clone(), kern.clone()]
-    pc.plane_cost_update(*base, d1, n1, *sk)
-    c1 = pc.plane_cost_plain(*base, d1, n1)
-    better = c1 < plain
-    agree_mask = (c1 < kern) == better
-    agree = agree_mask.float().mean().item()
-    near = (c1 - plain).abs()[~agree_mask].max().item() if not agree_mask.all() else 0.0
-    state = [d0.clone(), n0.clone(), kern.clone()]
-    ms = cuda_ms(lambda: pc.plane_cost_update(*base, d1, n1, *state), graph=True)
-    plain_ms = cuda_ms(lambda: pc.plane_cost_plain(*base, d1, n1), reps=3)
+    same_init = torch.equal(kern, plain) and torch.equal(kern, pc.plane_cost(*base, d0, n0))
+    same_weights = torch.equal(weights, pc.tap_weights_plain(prep.ref, taps))
+    extras = (torch.stack([d1, d2]), torch.stack([n1, n2]))
+
+    def start():
+        return [d0.clone(), n0.clone(), plain.clone()]
+
+    runs = []
+    for _ in range(2):
+        state, means = start(), torch.empty((K4_CANDIDATES, H, W), device=dev)
+        pc.plane_cost_sweep(*base, *state, *extras, weights=weights, means=means)
+        runs.append(state + [means])
+    state, means = start(), torch.empty((K4_CANDIDATES, H, W), device=dev)
+    pc.plane_cost_sweep_plain(*base, *state, *extras, means=means)
+    same_sweep = all(torch.equal(a, b) for a, b in zip(runs[0], state + [means]))
+    same_runs = all(torch.equal(a, b) for a, b in zip(*runs))
+    moved = (runs[0][2] != plain).float().mean().item()
+    state = start()
+    ms = cuda_ms(lambda: pc.plane_cost_sweep(*base, *state, *extras, weights=weights),
+                 graph=True)
+    init_ms = cuda_ms(lambda: pc.plane_cost(*base, d0, n0, weights=weights), graph=True)
+    plain_ms = cuda_ms(lambda: pc.plane_cost_sweep_plain(*base, *start(), *extras), reps=3)
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+
+    def profiled_sweep(pad_s):
+        with torch.profiler.profile(activities=acts) as prof:
+            time.sleep(pad_s)
+            pc.plane_cost_sweep(*base, *state, *extras, weights=weights)
+            torch.cuda.synchronize()
+            time.sleep(pad_s)
+        return kernel4_device(prof)[0]
+
+    per_sweep = {"bare": profiled_sweep(0.0), "padded": profiled_sweep(K4_PROFILE_PAD_S)}
     with torch.profiler.profile(activities=acts) as prof:
         pc.plane_cost_plain(*base, d1, n1)
         torch.cuda.synchronize()
-    plain_launches = device_work(prof)["device_kernels"]
+    plain_per_candidate = device_work(prof)["device_kernels"]
     nbytes, ops = k4_bound(H, W, S, taps, H, W)
     y = yardsticks(ms, nbytes, ops, F32_FLOPS, None)
-    log(f"kernel4 {label} {H}x{W} S={S} R={radius}: max |cost err| {err:.3g}, decisions "
-        f"agree {agree:.6f} (differing pixels within {near:.3g} of a tie), two runs bitwise "
-        f"{bitwise}, kernel {ms:.4f} ms, plain {plain_ms:.3f} ms with {plain_launches} device "
-        f"kernels a call, bound {y['bound_ms']:.4f} ms ({y['bound_by']}, "
-        f"{ops / 1e9:.2f} GFLOP), share of bound {y['share_of_bound']:.4f}")
-    if not err <= K4_MAX_ABS or agree < K4_AGREE or near > K4_MAX_ABS or not bitwise:
+    blocks, tile = pc.occupancy(taps)
+    log(f"kernel4 {label} {H}x{W} S={S} R={radius}: initial pass bitwise {same_init} (max "
+        f"|err| {err:.3g}), tap weights bitwise {same_weights}, sweep bitwise {same_sweep} "
+        f"(cost moved at {moved:.3f} of the pixels), two sweeps bitwise {same_runs}; sweep "
+        f"{ms:.4f} ms ({ms / K4_CANDIDATES:.5f} a candidate; initial pass {init_ms:.4f}), "
+        f"device kernels a sweep (profiled) {per_sweep}, tile {tile} with {blocks} blocks per "
+        f"SM; plain sweep {plain_ms:.1f} ms ({plain_per_candidate} device kernels a candidate); "
+        f"bound {y['bound_ms']:.4f} ms ({y['bound_by']}, {ops / 1e9:.2f} GFLOP), share of "
+        f"bound {y['share_of_bound']:.4f}")
+    if not (same_init and same_weights and same_sweep and same_runs) or not moved > 0:
         raise AssertionError(f"kernel 4 disagrees with its plain version at {label}")
-    return {"shape": [H, W, S, radius], "max_abs_err": err, "decision_agreement": agree,
-            "ms": ms, "plain_ms": plain_ms, "plain_device_kernels_per_call": plain_launches,
+    return {"shape": [H, W, S, radius], "candidates": K4_CANDIDATES, "max_abs_err": err,
+            "sweep_bitwise_plain": same_sweep, "ms": ms, "ms_per_candidate": ms / K4_CANDIDATES,
+            "initial_pass_ms": init_ms, "plain_ms": plain_ms,
+            "plain_ms_per_candidate": plain_ms / K4_CANDIDATES,
+            "profiled_device_kernels_per_sweep": per_sweep,
+            "plain_device_kernels_per_candidate": plain_per_candidate,
+            "tile": list(tile), "blocks_per_sm": blocks,
+            "bound_ms_per_candidate": y["bound_ms"] / K4_CANDIDATES,
             "library_note": K4_LIBRARY_NOTE, **y}
 
 
@@ -1410,11 +1472,11 @@ def maps_of(store, table="patch_match"):
 
 
 def cost_calls(n_maps, pm, geom=False, bands=1):
-    """Kernel 4's launches for n_maps depth maps: one initial pass and 10
-    candidates a sweep, per level (and band)."""
-    per = (1 + 10 * pm.num_iterations) + (1 + 10 * pm.fine_iterations) * bands
+    """Kernel 4's wrapper calls for n_maps depth maps: one initial pass and
+    one call a sweep, per level (and band)."""
+    per = (1 + pm.num_iterations) + (1 + pm.fine_iterations) * bands
     if geom:
-        per += (1 + 10 * pm.num_iterations) * bands
+        per += (1 + pm.num_iterations) * bands
     return n_maps * per
 
 
@@ -1466,7 +1528,10 @@ def dense_phase(dev, bf16_run, gt):
     with torch.profiler.profile(activities=acts) as prof:
         stages.run_patch_match(cfg, store, device=dev, out_table="patch_match_profiled")
         torch.cuda.synchronize()
-    per_map = device_work(prof)["device_kernels"] / max(n_maps, 1)
+    work = device_work(prof)
+    per_map = work["device_kernels"] / max(n_maps, 1)
+    k4_n, k4_ms = kernel4_device(prof)
+    k4_ms_per_map = k4_ms / max(n_maps, 1)
     n_fused = dense_stage("fusion_192", lambda: stages.run_fusion(cfg, store, device=dev), st)
     fused, med, p90 = dense_score(model, gt, store)
     n_faces = dense_stage("meshing_192", lambda: stages.run_meshing(cfg, store, device=dev), st)
@@ -1476,7 +1541,10 @@ def dense_phase(dev, bf16_run, gt):
         "depth_maps": n_maps, "depth_maps_per_s": n_maps / st["patch_match_192"]["s"],
         "warm_maps_equal_cold": bitwise, "plane_cost_launches": main["plane_cost"],
         "cost_calls": want, "plane_cost_launches_per_map": main["plane_cost"] / n_maps,
-        "device_kernels_per_map": per_map, "fused_points": fused,
+        "device_kernels_per_map": per_map,
+        "device_busy_ms_per_map": work["device_busy_ms"] / max(n_maps, 1),
+        "plane_cost_device_kernels_per_map": k4_n / max(n_maps, 1),
+        "plane_cost_device_ms_per_map": k4_ms_per_map, "fused_points": fused,
         "fused_points_per_s": n_fused / st["fusion_192"]["s"], "surface_median_rel": med,
         "surface_p90_rel": p90, "mesh_faces": n_faces, "mesh_median_rel": mesh["median_rel"]}
     paths["dense_192"] = main
@@ -1538,14 +1606,18 @@ def dense_phase(dev, bf16_run, gt):
     log("dense: " + json.dumps(out))
     d = out["192px_4src"]
     if (not bitwise or main["plane_cost"] != want or not within_band(med, fused)
+            or fused != DENSE_FUSED_PINNED["192"]
+            or k4_n != K4_DEVICE_LAUNCHES * want + K4_LEVELS * n_maps
             or not mesh["median_rel"] <= DENSE_MEDIAN_FACTOR * DENSE_BAND["mesh_median"]
             + DENSE_MEDIAN_SLACK or not n_faces > 0
             or abs(n16 - fused) > F16_FUSED_TOL * fused):
         raise AssertionError(f"dense 192 px: {d}")
     g = out["192px_4src_geom"]
-    if g["plane_cost_launches"] != g["cost_calls"] or not within_band(g_med, g_fused, "geom"):
+    if (g["plane_cost_launches"] != g["cost_calls"] or not within_band(g_med, g_fused, "geom")
+            or g_fused != DENSE_FUSED_PINNED["geom"]):
         raise AssertionError(f"dense 192 px, geometric pass: {g}")
-    if (not within_band(h_med, h_fused, "hires") or not tile_diff <= DENSE_TILE_MAX_DIFF
+    if (not within_band(h_med, h_fused, "hires") or h_fused != DENSE_FUSED_PINNED["hires"]
+            or not tile_diff <= DENSE_TILE_MAX_DIFF
             or paths["dense_480"]["plane_cost"] != cost_calls(n_h, cfg_h.patch_match)):
         raise AssertionError(f"dense 480 px: {out['480px_8src']}")
     return paths, out

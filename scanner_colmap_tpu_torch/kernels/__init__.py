@@ -1,6 +1,6 @@
 """Hand-written CUDA kernels for Hopper: one per Pallas TPU kernel of the
 JAX package (``pair_match``, ``schur``, ``top2``), and ``plane_cost``,
-PatchMatch's cost and Jacobi update, which the JAX package leaves to XLA's
+PatchMatch's cost and Jacobi sweep, which the JAX package leaves to XLA's
 fusion. Sources live in ``csrc/``; ``_build`` compiles them with ``nvcc``
 at first use on a CUDA tensor. Every wrapper takes its plain PyTorch
 version for CPU tensors only and counts its launches in

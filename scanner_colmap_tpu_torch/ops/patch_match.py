@@ -12,8 +12,9 @@ Two samplings of the cost:
 - ``"field"`` (the default): each source is sampled once per pixel through
   the pixel's own candidate plane, and every window tap is reconstructed
   from the neighbour's sample with a first-order correction to p's own
-  plane. On a CUDA tensor this is kernel 4 (``kernels/plane_cost.py``),
-  one launch per candidate that also applies the Jacobi update.
+  plane. On a CUDA tensor this is kernel 4 (``kernels/plane_cost.py``):
+  one call a sweep evaluates all ten candidates and applies the Jacobi
+  update.
 - ``"exact"``: every window tap is warped through the center pixel's plane
   and sampled bilinearly (COLMAP's slanted window), as tensor operations on
   both devices.
@@ -35,7 +36,7 @@ from scanner_colmap_tpu_torch.kernels import plane_cost as pc
 _ncc_finish = pc.ncc_finish
 
 # Jacobi propagation: neighbours at distance 1 and 3, in this order
-SHIFTS = ((0, 1), (0, -1), (1, 0), (-1, 0), (0, 3), (0, -3), (3, 0), (-3, 0))
+SHIFTS = pc.SHIFTS
 
 
 class PatchMatchProblem(NamedTuple):
@@ -193,33 +194,58 @@ def _plane_costs_exact(prep: _Prepared, depth, normal, taps: pc.Taps, sigma_colo
     return _ncc_finish(sums, len(taps.offsets), geom, prep.src_valid, bad)
 
 
+def _field_bad(src_depths, geom_weight, max_geom_error):
+    """A masked source's cost: the photometric maximum, plus the geometric
+    term's maximum in a geometric pass."""
+    return 2.0 if src_depths is None else 2.0 + geom_weight * max_geom_error
+
+
 def _cost_call(prep: _Prepared, taps, sampling, sigma_color, src_depths, geom_weight,
-               max_geom_error, cand_d, cand_n, state=None):
-    """The cost of one candidate (state None), or one Jacobi step on the
-    state (depth, normal, cost) in place."""
+               max_geom_error, cand_d, cand_n, weights=None):
+    """The cost (H, W) of one candidate field."""
     if sampling == "exact":
-        c = _plane_costs_exact(prep, cand_d, cand_n, taps, sigma_color, src_depths,
-                               geom_weight, max_geom_error)
-        if state is None:
-            return c
-        depth, normal, cost = state
-        better = c < cost
-        depth.copy_(torch.where(better, cand_d, depth))
-        normal.copy_(torch.where(better[..., None], cand_n, normal))
-        cost.copy_(torch.where(better, c, cost))
-        return None
+        return _plane_costs_exact(prep, cand_d, cand_n, taps, sigma_color, src_depths,
+                                  geom_weight, max_geom_error)
     if sampling != "field":
         raise ValueError(f"unknown sampling {sampling!r}")
-    geom, bad = None, 2.0
+    geom = None
     if src_depths is not None:
         geom = _field_geom(prep, cand_d, cand_n, src_depths, geom_weight, max_geom_error)
-        bad = 2.0 + geom_weight * max_geom_error
-    args = (prep.ref, prep.pack, prep.k_ref, prep.k_src, prep.R, prep.t, prep.src_valid,
-            taps, cand_d, cand_n)
-    if state is None:
-        return pc.plane_cost(*args, geom=geom, sigma_color=sigma_color, bad=bad)
-    pc.plane_cost_update(*args, *state, geom=geom, sigma_color=sigma_color, bad=bad)
-    return None
+    return pc.plane_cost(prep.ref, prep.pack, prep.k_ref, prep.k_src, prep.R, prep.t,
+                         prep.src_valid, taps, cand_d, cand_n, geom=geom,
+                         sigma_color=sigma_color,
+                         bad=_field_bad(src_depths, geom_weight, max_geom_error),
+                         weights=weights)
+
+
+def _sweep(prep: _Prepared, taps, sampling, sigma_color, src_depths, geom_weight,
+           max_geom_error, cand_d, cand_n, state, weights=None):
+    """One Jacobi sweep on the state (depth, normal, cost) in place: the
+    ``SHIFTS`` neighbours' planes, then the fields cand_d (E, H, W) with
+    cand_n (E, H, W, 3), each kept where its cost is strictly lower. With
+    ``"field"`` sampling this is one call of kernel 4; its geometric term,
+    where there is one, stays eager tensor operations per candidate."""
+    depth, normal, cost = state
+
+    def materialised():
+        return ([(torch.roll(depth, s, (0, 1)), torch.roll(normal, s, (0, 1)))
+                 for s in SHIFTS] + list(zip(cand_d, cand_n)))
+
+    if sampling == "exact":
+        for cd, cn in materialised():
+            c = _plane_costs_exact(prep, cd, cn, taps, sigma_color, src_depths,
+                                   geom_weight, max_geom_error)
+            pc.jacobi_step(c, cd, cn, depth, normal, cost)
+        return
+    geom = None
+    if src_depths is not None:
+        geom = torch.stack([_field_geom(prep, cd, cn, src_depths, geom_weight,
+                                        max_geom_error) for cd, cn in materialised()])
+    pc.plane_cost_sweep(prep.ref, prep.pack, prep.k_ref, prep.k_src, prep.R, prep.t,
+                        prep.src_valid, taps, depth, normal, cost, cand_d, cand_n,
+                        geom=geom, sigma_color=sigma_color,
+                        bad=_field_bad(src_depths, geom_weight, max_geom_error),
+                        weights=weights)
 
 
 def plane_costs(problem: PatchMatchProblem, depth: torch.Tensor, normal: torch.Tensor,
@@ -306,30 +332,25 @@ def patch_match(problem: PatchMatchProblem, num_iterations: int = 5, window_radi
     if src_depths is not None:
         src_depths = src_depths.to(dtype).contiguous()
 
-    def cost_call(cd, cn, state=None):
-        return _cost_call(prep, taps, sampling, sigma_color, src_depths, geom_weight,
-                          max_geom_error, cd, cn, state)
+    weights = pc.tap_weights(prep.ref, taps, sigma_color) if sampling == "field" else None
+    args = (prep, taps, sampling, sigma_color, src_depths, geom_weight, max_geom_error)
 
     if init_depth is None or init_normal is None:
         d0, g0 = draws.initial(H, W, dtype, dev)
     depth = (init_depth.to(dtype) if init_depth is not None else d0).contiguous().clone()
     normal = (init_normal.to(dtype) if init_normal is not None
               else _random_normals(g0)).contiguous().clone()
-    cost = cost_call(depth, normal)
+    cost = _cost_call(*args, depth, normal, weights)
 
     for it in range(num_iterations):
         u, g, rd, gr = draws.sweep(H, W, dtype, dev)
-        cands = [(torch.roll(depth, s, (0, 1)), torch.roll(normal, s, (0, 1)))
-                 for s in SHIFTS]
         scale = 0.5 ** (it + 1.0)
         pd = torch.clamp(depth * (1.0 + scale * u), dmin, dmax)
         pn = normal + scale * g
         pn = pn / torch.clamp(torch.linalg.vector_norm(pn, dim=-1, keepdim=True), min=1e-9)
         pn = torch.cat([pn[..., :2], -pn[..., 2:].abs()], dim=-1)
-        cands.append((pd, pn))
-        cands.append((rd, _random_normals(gr)))
-        for cd, cn in cands:
-            cost_call(cd.contiguous(), cn.contiguous(), (depth, normal, cost))
+        _sweep(*args, torch.stack([pd, rd]), torch.stack([pn, _random_normals(gr)]),
+               (depth, normal, cost), weights)
     return depth, normal, cost
 
 

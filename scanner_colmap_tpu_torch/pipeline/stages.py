@@ -30,7 +30,7 @@ and optionally runs the guided pass 16 pairs a call and multiple two-view
 models. Mapping runs the device or the host mapper per cluster; the merge
 folds any number of submodels and refines the result on the device, with
 the matrix-free CG solver past the dense bound. PatchMatch runs kernel 4
-(``kernels/plane_cost.py``) for every candidate on the card; fusion's
+(``kernels/plane_cost.py``) once per sweep on the card; fusion's
 voting and the TSDF run as tensor operations on the device, marching
 tetrahedra on the host.
 

@@ -5,10 +5,14 @@ need a CUDA device and nvcc; elsewhere they skip. They import no jax:
     python -m pytest --noconftest -m cuda tests/test_torch_plane_cost_cuda.py
 
 Tolerance: both routes round every product and sum in the same order, so
-they differ only where expf or the best-half mean's order does; the cost
-agrees within 1e-5 and the update takes the same decision on >= 99.9% of
-the pixels, the others near-ties (costs within 1e-5). Two launches are
-bitwise equal: each pixel sums in a fixed order, with no atomics.
+they could differ only where expf or the best-half mean's order does; the
+single-candidate entries are held to a cost within 1e-5 and the same
+update decision on >= 99.9% of the pixels, the others near-ties (costs
+within 1e-5). A sweep (``plane_cost_sweep``, ten candidates a call) is held
+to the bit: the state and each candidate's cost equal the plain sweep's,
+whether the wrapper builds the tap-weight table or is given it. Two
+launches are bitwise equal: each pixel sums in a fixed order, with no
+atomics.
 """
 
 import numpy as np
@@ -119,7 +123,7 @@ def test_patch_match_on_the_card_runs_the_kernel(dev):
     kernels.reset_launch_counts()
     d1 = tpm.patch_match(prob, num_iterations=2, generator=tpm.pm_generator(dev, 0))
     calls = kernels.launch_counts()["plane_cost"]
-    assert calls == 1 + 2 * 10
+    assert calls == 1 + 2            # the initial pass, then one call a sweep
     d2 = tpm.patch_match(prob, num_iterations=2, generator=tpm.pm_generator(dev, 0))
     for a, b in zip(d1, d2):
         assert torch.equal(a, b)
@@ -134,3 +138,88 @@ def test_wrapper_refuses_a_strided_input(dev):
     with pytest.raises(ValueError, match="contiguous"):
         pc.plane_cost(prep.ref, prep.pack, prep.k_ref, prep.k_src, prep.R, prep.t,
                       prep.src_valid, taps, strided, normal)
+
+
+def sweep_case(dev, H, W, S, radius, step, seed=0):
+    """(base arguments, sweep-start state, extra fields) at one shape."""
+    prob, d0, n0 = problem(dev, H, W, S, seed=seed)
+    _, d1, n1 = problem(dev, H, W, S, seed=seed + 1)
+    _, d2, n2 = problem(dev, H, W, S, seed=seed + 2)
+    prep = tpm._prepare(prob, "field")
+    taps = pc.window_taps(radius, step, 3.0, dev)
+    base = (prep.ref, prep.pack, prep.k_ref, prep.k_src, prep.R, prep.t, prep.src_valid, taps)
+    return base, (d0, n0, pc.plane_cost_plain(*base, d0, n0)), (torch.stack([d1, d2]),
+                                                                torch.stack([n1, n2]))
+
+
+def kernel_sweep(base, state, extras, **kw):
+    st = [a.clone() for a in state]
+    means = torch.empty((10,) + st[0].shape, device=st[0].device)
+    pc.plane_cost_sweep(*base, *st, *extras, means=means, **kw)
+    return st + [means]
+
+
+@pytest.mark.parametrize("S", [1, 3, 8, 16])
+@pytest.mark.parametrize("radius,step", [(3, 1), (5, 1), (5, 2)])
+def test_sweep_equals_the_plain_sweep_bitwise(dev, S, radius, step):
+    base, state, extras = sweep_case(dev, 37, 53, S, radius, step, seed=S)
+    a = kernel_sweep(base, state, extras)
+    b = kernel_sweep(base, state, extras, weights=pc.tap_weights(base[0], base[7]))
+    plain = [x.clone() for x in state]
+    means = torch.empty_like(a[3])
+    pc.plane_cost_sweep_plain(*base, *plain, *extras, means=means)
+    for x, y, z in zip(a, b, plain + [means]):
+        assert torch.equal(x, y)
+        assert torch.equal(x, z)
+    assert not torch.equal(a[2], state[2])        # some candidate won somewhere
+
+
+def test_sweep_with_the_geometric_term_equals_plain(dev):
+    base, state, extras = sweep_case(dev, 37, 53, 3, 5, 1)
+    geom = torch.rand((10, 3, 37, 53), device=dev) * 0.9
+    a = kernel_sweep(base, state, extras, geom=geom, bad=2.9)
+    plain = [x.clone() for x in state]
+    means = torch.empty_like(a[3])
+    pc.plane_cost_sweep_plain(*base, *plain, *extras, geom=geom, bad=2.9, means=means)
+    for x, y in zip(a, plain + [means]):
+        assert torch.equal(x, y)
+
+
+def test_tap_weights_equal_the_plain_table(dev):
+    base, _, _ = sweep_case(dev, 37, 53, 2, 5, 1)
+    assert torch.equal(pc.tap_weights(base[0], base[7], 0.3),
+                       pc.tap_weights_plain(base[0], base[7], 0.3))
+
+
+def test_sweep_is_one_call_and_two_launches(dev):
+    """One wrapper call a sweep; on the card (torch.profiler) its cost pass
+    and finish, and the table's launch where the wrapper builds it."""
+    base, state, extras = sweep_case(dev, 40, 48, 4, 5, 1)
+    weights = pc.tap_weights(base[0], base[7])
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        kernel_sweep(base, state, extras, weights=weights)
+        kernel_sweep(base, state, extras)
+        torch.cuda.synchronize()
+    assert kernels.launch_counts()["plane_cost"] == 2
+    counts = {}
+    for e in prof.key_averages():
+        for name in ("plane_cost_pass", "plane_cost_finish", "plane_weight_kernel"):
+            if name in e.key:
+                counts[name] = counts.get(name, 0) + e.count
+    assert counts == {"plane_cost_pass": 2, "plane_cost_finish": 2, "plane_weight_kernel": 1}
+
+
+def test_sweep_refuses_a_strided_or_misshaped_input(dev):
+    base, state, (ed, en) = sweep_case(dev, 37, 53, 3, 3, 1)
+    st = [a.clone() for a in state]
+    strided = torch.empty((2, 53, 37), device=dev).transpose(1, 2)
+    strided.copy_(ed)
+    with pytest.raises(ValueError, match="contiguous"):
+        pc.plane_cost_sweep(*base, *st, strided, en)
+    with pytest.raises(ValueError, match="geom"):
+        pc.plane_cost_sweep(*base, *st, ed, en, geom=torch.zeros((3, 37, 53), device=dev))
+    with pytest.raises(ValueError, match="extra_n"):
+        pc.plane_cost_sweep(*base, *st, ed, en[:1])
