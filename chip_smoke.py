@@ -96,6 +96,26 @@ Phases (any failure raises and exits non-zero; there is no CPU path):
     ``cli undistort`` and ``cli all --resume`` (the dense stages at
     PipelineConfig()'s 400 px and 5 sources) on phase 11's store: surface
     median <= 0.05, fused points and faces > 0
+  13 the scale-out layer (``parallel/*``). (a) World 1 on NCCL in this
+    process: the sharded BA bitwise ``bundle_adjust`` at M=256, P=8192,
+    T=16 (dense) and M=1024, P=49152, T=4 (CG), 8 LM iterations each; the
+    fused step (ring halo, the block's windows as one kernel-1 launch, the
+    sharded BA) on the bf16 slice's extraction with overlap 6, its matches
+    equal to kernel 1's resident plan pair by pair; the multi-host stages
+    on bench's 16-image set (extraction, matching, host mapping, merge,
+    PatchMatch at 192 px) and the 48-image loop set's f32 matching with
+    closure on. (b) Two gloo ranks as subprocesses of this script
+    (``--scaleout-rank``), both on cuda:0: the same BA (ranks bitwise
+    equal, final cost within 1e-5 of world 1), the dense one padded with
+    invalid points to twice its size (rank 1's shard all padding; world
+    1's solve bitwise), the same step (matches world 1's), the same stages
+    (extraction, matching, mapping and depth-map tables bitwise world 1's,
+    the merge >= 15/16 at ATE <= 0.012) and the loop set (no pair twice,
+    the table world 1's). On each of these paths, in this process and in
+    each rank, ``KernelTap`` keeps the kernel calls the path made (every
+    call of kernels 1-3, the first of each shape of kernel 4's) and holds
+    them against the plain versions after the launches are read. A rank
+    that exits non-zero fails the run
 Each phase prints its wall time. The second-to-last line is the card's
 name and power limit, the line before it a JSON summary of the kernels
 (with each kernel's launches on every path that carries it), the last line
@@ -106,11 +126,14 @@ their type (989 TFLOP/s bf16 tensor cores, 67 TFLOP/s f32 without); for
 kernel 4 the operations its in-image taps need (``k4_bound``).
 """
 
+import contextlib
+import dataclasses
 import json
 import os
 import shutil
 import statistics
 import subprocess
+import sys
 import tempfile
 import time
 from concurrent.futures import ThreadPoolExecutor
@@ -120,6 +143,7 @@ import torch
 
 K1_AGREE = 0.999      # share of rows with identical decisions
 K1_NEAR_TIE = 1e-5    # every disagreement must be a near-tie this close
+K1_MAX_ABS = 1e-5     # best and second on the scale-out paths' calls (phase 2: <= 6e-7)
 K2_REL_FROB = 1e-5    # relative Frobenius error of S
 K2_REL_TERMS = 1e-6   # error of S against its f64 sum over |sum of |products||
 K2_CALLS_PER_GRAPH = 20
@@ -267,6 +291,177 @@ def cuda_ms(fn, reps=10, graph=False, calls=1):
         b.synchronize()
         times.append(a.elapsed_time(b) / (calls if graph else 1))
     return statistics.median(times)
+
+
+# ---------------------------------------------------------------------------
+# the kernel calls a path makes, kept for replay against the plain versions
+# ---------------------------------------------------------------------------
+
+def _clone(x):
+    """Tensors cloned through plain tuples, lists and dicts."""
+    if type(x) in (tuple, list):
+        return type(x)(_clone(v) for v in x)
+    if type(x) is dict:
+        return {k: _clone(v) for k, v in x.items()}
+    return x.clone() if isinstance(x, torch.Tensor) else x
+
+
+class _Module:
+    """A module seen through a few replaced attributes."""
+
+    def __init__(self, module, **attrs):
+        self._module = module
+        self.__dict__.update(attrs)
+
+    def __getattr__(self, name):
+        return getattr(self._module, name)
+
+
+def tapped_path(fn, label):
+    """fn() run as one path: (its result, the kernels' launches in it, and
+    the replay of its kernel calls against the plain versions, made after
+    the launches were read)."""
+    from scanner_colmap_tpu_torch import kernels
+
+    kernels.reset_launch_counts()
+    with KernelTap() as tap:
+        res = fn()
+        torch.cuda.synchronize()
+    counts = kernels.launch_counts()
+    return res, counts, tap.replay(label, counts)
+
+
+class KernelTap:
+    """While open (``with``), keeps the kernel calls a path makes, taken at
+    the wrappers' call sites (``ops.matching``, ``ops.ba``, and
+    ``ops.patch_match``'s ``pc``): every call of kernels 1-3 and the first
+    of each input shape of kernel 4's initial pass and sweep (its plain
+    sweep takes over a second), with the inputs cloned before the call and
+    the outputs (a sweep: its state) after. The wrappers launch and count
+    as before. ``replay`` holds each kept call's outputs against the plain
+    version on its inputs, and launches no kernel."""
+
+    def __init__(self):
+        self.calls = {"pair_match": [], "top2": [], "schur": [], "plane_cost": []}
+        self._undo = []
+
+    def _wrap(self, name, fn, first_per_shape=False, state=()):
+        seen = set()
+
+        def tapped(*args, **kw):
+            shape = (fn.__name__,) + tuple(tuple(a.shape) for a in args
+                                           if isinstance(a, torch.Tensor))
+            keep = not first_per_shape or shape not in seen
+            seen.add(shape)
+            if keep:
+                inputs = (_clone(args), _clone(kw))
+            out = fn(*args, **kw)
+            if keep:
+                self.calls[name].append((fn.__name__, *inputs,
+                                         _clone([args[i] for i in state] if state else out)))
+            return out
+
+        return tapped
+
+    def __enter__(self):
+        from scanner_colmap_tpu_torch.kernels import plane_cost as pc
+        from scanner_colmap_tpu_torch.ops import ba, matching, patch_match
+
+        k4 = _Module(pc, plane_cost=self._wrap("plane_cost", pc.plane_cost, True),
+                     plane_cost_sweep=self._wrap("plane_cost", pc.plane_cost_sweep, True,
+                                                 state=(8, 9, 10)))
+        for mod, attr, new in ((matching, "pair_match", self._wrap("pair_match",
+                                                                   matching.pair_match)),
+                               (matching, "top2_bank", self._wrap("top2", matching.top2_bank)),
+                               (ba, "schur_accumulate", self._wrap("schur",
+                                                                   ba.schur_accumulate)),
+                               (patch_match, "pc", k4)):
+            self._undo.append((mod, attr, getattr(mod, attr)))
+            setattr(mod, attr, new)
+        return self
+
+    def __exit__(self, *exc):
+        for mod, attr, old in reversed(self._undo):
+            setattr(mod, attr, old)
+        self._undo.clear()
+
+    def replay(self, path, launches):
+        """{kernel: what its kept calls show} for one path whose wrapper
+        counts were ``launches``. Kernels 1 and 3: the decisions of every
+        row agree with the plain version's but near-ties (the rules and
+        bars of phases 2 and 4), best and second within K1_MAX_ABS /
+        K3_MAX_ABS, kernel 3's reverse argbest equal. Kernel 2: S within
+        K2_REL_TERMS of the f64 sum (phase 3's bar), and exactly the plain
+        version's zeros on a shard of padding. Kernel 4: bitwise. Raises if
+        one disagrees, or a kernel launched on the path left no call."""
+        from scanner_colmap_tpu_torch.kernels import pair_match as k1
+        from scanner_colmap_tpu_torch.kernels import plane_cost as pc
+        from scanner_colmap_tpu_torch.kernels import schur as sk
+        from scanner_colmap_tpu_torch.kernels import top2 as k3
+        from scanner_colmap_tpu_torch.ops import matching
+
+        out, bad = {}, []
+        for name, calls in self.calls.items():
+            if launches[name] and not calls:
+                bad.append(f"{name}: launched {launches[name]} times, no call kept")
+            if not calls:
+                continue
+            r = {"calls": len(calls), "max_abs_err": 0.0, "shapes": sorted(
+                {str([list(a.shape) for a in args if isinstance(a, torch.Tensor)][:2])
+                 for _, args, _, _ in calls})[:8]}
+            for i, (fname, args, kw, got) in enumerate(calls):
+                if name in ("pair_match", "top2"):
+                    pool, vb, ai, bi = args
+                    plain = (k1.pair_match_plain if name == "pair_match"
+                             else k3.top2_bank_plain)(pool, vb, ai, bi)
+                    d_k, d_p = matching.decide(*got), matching.decide(*plain)
+                    err = max((got[j] - plain[j]).abs().max().item() for j in (0, 1))
+                    diff = (d_k != d_p).nonzero()
+                    far = _far_from_ties(plain[:3], lambda p, c: pool[ai[p].long()].float()
+                                         @ pool[bi[p].long(), c].float(), diff, K1_NEAR_TIE)
+                    agree = 1.0 - len(diff) / d_k.numel()
+                    rev = torch.equal(got[3], plain[3])
+                    r["min_agree"] = min(r.get("min_agree", 1.0), agree)
+                    r["decisions_differ"] = r.get("decisions_differ", 0) + len(diff)
+                    ok = agree >= K1_AGREE and not far and err <= (
+                        K1_MAX_ABS if name == "pair_match" else K3_MAX_ABS)
+                    if name == "top2":
+                        r["rev_equal"] = r.get("rev_equal", True) and rev
+                        ok = ok and rev
+                elif name == "schur":
+                    cam_idx, Wc, Vinv, M = args
+                    plain = sk.schur_accumulate_plain(cam_idx, Wc, Vinv, M)
+                    R64 = sk.schur_accumulate_plain(cam_idx, Wc.double(), Vinv.double(), M)
+                    terms = sk.schur_accumulate_plain(cam_idx, Wc.double().abs(),
+                                                      Vinv.double().abs(), M).norm().item()
+                    err = (got - plain).abs().max().item()
+                    if terms == 0.0:            # a shard of padding
+                        r["padding_calls"] = r.get("padding_calls", 0) + 1
+                        ok = torch.equal(got, plain) and not got.any()
+                    else:
+                        rel = (got.double() - R64).norm().item() / terms
+                        r["worst_err_terms"] = max(r.get("worst_err_terms", 0.0), rel)
+                        ok = rel <= K2_REL_TERMS
+                else:
+                    if fname == "plane_cost":
+                        plain = pc.plane_cost_plain(*args, **kw)
+                        pairs = [(got, plain)]
+                    else:
+                        args = list(args)
+                        args[8:11] = [a.clone() for a in args[8:11]]
+                        pc.plane_cost_sweep_plain(*args, **kw)
+                        pairs = list(zip(got, args[8:11]))
+                    err = max((a - b).abs().max().item() for a, b in pairs)
+                    ok = all(torch.equal(a, b) for a, b in pairs)
+                r["max_abs_err"] = max(r["max_abs_err"], err)
+                if not ok:
+                    bad.append(f"{name} call {i} ({fname})")
+            out[name] = r
+        log(f"scale-out replay {path}: " + json.dumps(out))
+        if bad:
+            raise AssertionError(f"scale-out: on {path} a kernel disagrees with its plain "
+                                 f"version: {bad[:10]}")
+        return out
 
 
 # ---------------------------------------------------------------------------
@@ -602,24 +797,17 @@ def run_slice(dev, frames, gt, root, precision, record=None):
     ``record``, the cold pass appends to it (stage, (cam_idx, Wc, Vinv, M))
     of every kernel 2 call, copied as the BA passed them."""
     from scanner_colmap_tpu_torch import kernels
-    from scanner_colmap_tpu_torch.ops import ba
     from scanner_colmap_tpu_torch.pipeline import ArtifactStore, stages
 
     cfg = slice_config(root, precision)
     store = ArtifactStore(root)
     stages.prepare_images(cfg, store, frames=[(f, gt["focal"]) for f in frames])
     times, cold = {}, {}
-    schur = ba.schur_accumulate
     for name in STEPS:                           # cold pass
-        if record is not None:
-            def recorder(cam_idx, Wc, Vinv, M, stage=name):
-                record.append((stage, (cam_idx.clone(), Wc.clone(), Vinv.clone(), M)))
-                return schur(cam_idx, Wc, Vinv, M)
-            ba.schur_accumulate = recorder
-        try:
+        with KernelTap() if record is not None else contextlib.nullcontext() as tap:
             cold.update(drive(cfg, store, dev, (name,), times, "_cold")[0])
-        finally:
-            ba.schur_accumulate = schur
+        if record is not None:
+            record.extend((name, args) for _, args, _, _ in tap.calls["schur"])
     kernels.reset_launch_counts()
     outs, per_stage = drive(cfg, store, dev, times=times)   # warm pass: the main path
     launches = kernels.launch_counts()
@@ -1655,6 +1843,451 @@ def cli_dense_phase(root, gt):
     return {"cli_dense_real": out["launches"]}, out
 
 
+# ---------------------------------------------------------------------------
+# phase 13: the scale-out layer
+# ---------------------------------------------------------------------------
+
+SCALE_OUT_RANKS = 2
+# (tag, M, P, T, solver, LM iterations): phase 3's and phase 9's shapes
+DIST_BA_SHAPES = (("dense", 256, 8192, 16, "dense", 8), ("cg", 1024, 49152, 4, "cg", 8))
+DIST_CG_ITERS = 32
+DIST_BA_RTOL = 1e-5         # world 2 against world 1: f32 sums in another order
+DIST_STEP_OVERLAP = 6       # the slice's window
+DIST_STEP_BA_ITERATIONS = 3
+RANK_TIMEOUT_S = 600
+
+
+def timed_twice(fn):
+    """fn() run twice: (the second run's result, ms of each run, whether
+    the two results are bitwise equal); fn returns (params, info)."""
+    runs = []
+    for _ in range(2):
+        torch.cuda.synchronize()
+        t = time.time()
+        out = fn()
+        torch.cuda.synchronize()
+        runs.append((out, (time.time() - t) * 1e3))
+    (a, ia), (b, ib) = runs[0][0], runs[1][0]
+    same = _same_params(a, b) and torch.equal(ia["final_cost"], ib["final_cost"])
+    return runs[1][0], [ms for _, ms in runs], same
+
+
+def dist_ba_runs(mesh, dev, solve=None, profile=False):
+    """The sharded BA at DIST_BA_SHAPES on ``mesh`` (with ``solve``, that
+    solver in its place), twice, with the problem made from its seed on
+    every rank alike: {tag: (params, info, ms per LM iteration of the cold
+    and the warm run, the two runs bitwise equal, and with ``profile`` the
+    device work of a third run under torch.profiler)}."""
+    from scanner_colmap_tpu_torch.ops import ba
+    from scanner_colmap_tpu_torch.parallel.dist_ba import distributed_bundle_adjust
+    from scanner_colmap_tpu_torch.utils.metrics import device_work
+
+    solve = solve or (lambda *a, **kw: distributed_bundle_adjust(mesh, *a, **kw))
+    out = {}
+    for tag, M, P, T, solver, iters in DIST_BA_SHAPES:
+        p, o, c = ba.synthetic_bundle(M=M, P=P, T=T, seed=2, device=dev)
+
+        def run():
+            return solve(p, o, c, max_iterations=iters, solver=solver,
+                         cg_iters=DIST_CG_ITERS, function_tolerance=0.0)
+
+        (q, info), ms, same = timed_twice(run)
+        work = None
+        if profile:
+            acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+            with torch.profiler.profile(activities=acts) as prof:
+                run()
+                torch.cuda.synchronize()
+            work = device_work(prof)
+            its = int(info["iterations"])
+            work["device_busy_ms_per_lm_iteration"] = work["device_busy_ms"] / its
+            dev_us = {e.key[:48]: float(getattr(e, "self_device_time_total",
+                                                getattr(e, "self_cuda_time_total", 0.0)))
+                      for e in prof.key_averages()
+                      if "CUDA" in str(getattr(e, "device_type", ""))}
+            work["top_device_ms_per_lm_iteration"] = {
+                k: v / 1e3 / its for k, v in sorted(dev_us.items(), key=lambda kv: -kv[1])[:6]}
+        out[tag] = (q, info, [t / int(info["iterations"]) for t in ms], same, work)
+    return out
+
+
+def dist_ba_padded(mesh, dev):
+    """The dense shape of DIST_BA_SHAPES with its points padded by invalid
+    ones (zero xyz, no observation, pt_valid False) to SCALE_OUT_RANKS
+    times their number, solved once: in the ranks the first shard is the
+    whole problem and every other one only padding (kernel 2, its launch
+    plan and the sums on a shard of padding). (params, info)."""
+    from scanner_colmap_tpu_torch.ops import ba
+    from scanner_colmap_tpu_torch.parallel.dist_ba import distributed_bundle_adjust
+
+    _, M, P, T, solver, iters = DIST_BA_SHAPES[0]
+    p, o, c = ba.synthetic_bundle(M=M, P=P, T=T, seed=2, device=dev)
+
+    def pad(t):
+        return torch.cat([t, t.new_zeros(((SCALE_OUT_RANKS - 1) * P,) + t.shape[1:])])
+
+    p = dataclasses.replace(p, xyz=pad(p.xyz))
+    o = dataclasses.replace(o, cam_idx=pad(o.cam_idx), uv=pad(o.uv), valid=pad(o.valid))
+    c = dataclasses.replace(c, pt_valid=pad(c.pt_valid))
+    return distributed_bundle_adjust(mesh, p, o, c, max_iterations=iters, solver=solver,
+                                     cg_iters=DIST_CG_ITERS, function_tolerance=0.0)
+
+
+def step_problem(store, model, world):
+    """The fused step's inputs on the host: the bf16 slice's descriptors
+    (N, K_max, 128) as the stage pools them, their validity, and the slice's
+    merged model packed as the merge's global BA packs it, its points
+    padded to a multiple of ``world`` with invalid ones."""
+    from scanner_colmap_tpu_torch.engine.bundle_io import pack_bundle_flat
+    from scanner_colmap_tpu_torch.ops import ba
+    from scanner_colmap_tpu_torch.parallel.mesh import pad_to_shards
+    from scanner_colmap_tpu_torch.pipeline import stages
+
+    image_ids, _, desc, _ = stages._load_extraction(store)
+    K = -(-max(len(desc[i]) for i in image_ids) // 128) * 128
+    raw, valid = stages._bank_rows(image_ids, desc, range(len(image_ids)), K, np.uint8)
+    cam_in, pt_in, obs_in, _ = pack_bundle_flat(model, model.registered_image_ids)
+    cam_in[0, 12:18] = 0.0
+    cam_in[1, 15] = 0.0
+    pt_in, _ = pad_to_shards(np.asarray(pt_in), world)
+    obs_in, _ = pad_to_shards(np.asarray(obs_in), world)
+    params, obs, cfg, _ = ba.flat_problem(cam_in, pt_in, obs_in, [1.0, 1.0, 4.0],
+                                          torch.device("cpu"))
+    return {"desc": torch.from_numpy(raw), "valid": torch.from_numpy(valid),
+            "bundle": (params, obs, cfg)}
+
+
+def dist_step_run(mesh, prob):
+    """(match_idx, match_ok, params, info, ms) of the fused step."""
+    from scanner_colmap_tpu_torch.parallel.step import make_distributed_step
+
+    step = make_distributed_step(mesh, DIST_STEP_OVERLAP, DIST_STEP_BA_ITERATIONS)
+    torch.cuda.synchronize()
+    t = time.time()
+    idx, ok, q, info = step(prob["desc"], prob["valid"], *prob["bundle"])
+    torch.cuda.synchronize()
+    return idx, ok, q, info, (time.time() - t) * 1e3
+
+
+def dist_stages_run(cfg, store, dev):
+    """bench's 16-image set through the multi-host stages, then PatchMatch
+    at 192 px over contiguous reference blocks. Returns the model."""
+    from scanner_colmap_tpu_torch.parallel import dist as tdist
+    from scanner_colmap_tpu_torch.pipeline import stages
+
+    for name in ("extraction", "matching", "mapping"):
+        getattr(tdist, f"run_{name}_distributed")(cfg, store, device=dev)
+    model = tdist.run_merge_distributed(cfg, store, device=dev)
+    if tdist.process_info()[0] == 0:
+        stages.run_prepare_patch_match(dense_config(cfg, 192), store)
+    tdist.barrier_via_store(store, "prepare_patch_match_done")
+    tdist.run_patch_match_distributed(dense_config(cfg, 192), store, device=dev)
+    torch.cuda.synchronize()
+    return model
+
+
+def _cpu(x):
+    if dataclasses.is_dataclass(x):
+        return {f.name: _cpu(getattr(x, f.name)) for f in dataclasses.fields(x)}
+    if isinstance(x, dict):
+        return {k: _cpu(v) for k, v in x.items()}
+    if isinstance(x, (tuple, list)):
+        return type(x)(_cpu(v) for v in x)
+    return x.cpu() if isinstance(x, torch.Tensor) else x
+
+
+def scaleout_rank(rank, work):
+    """One of the SCALE_OUT_RANKS gloo ranks of phase 13 (a subprocess of the
+    smoke run, on cuda:0 beside the other rank): the sharded BA, the fused
+    step, the multi-host stages and the loop set's sharded matching, with
+    the launches of each path; results into ``work``/rank<r>.pt."""
+    from scanner_colmap_tpu_torch import device as devlib
+    from scanner_colmap_tpu_torch.parallel import dist as tdist
+    from scanner_colmap_tpu_torch.parallel.mesh import make_mesh
+    from scanner_colmap_tpu_torch.pipeline import ArtifactStore, PipelineConfig
+
+    with open(os.path.join(work, "jobs.json")) as f:
+        jobs = json.load(f)
+    dev = torch.device(jobs["device"])          # every rank on the parent's card
+    torch.cuda.set_device(dev)
+    devlib.setup_numerics()
+    tdist.maybe_init_distributed(f"file://{os.path.join(work, 'gloo_init')}",
+                                 SCALE_OUT_RANKS, rank, backend="gloo")
+    mesh = make_mesh(device=dev)
+    out, launches, replays = {}, {}, {}
+
+    def path(name, fn):
+        res, launches[name], replays[name] = tapped_path(fn, f"{name} rank {rank}")
+        return res
+
+    out["ba"], out["ba_padded"] = path("dist_ba", lambda: (
+        _cpu(dist_ba_runs(mesh, dev)), _cpu(dist_ba_padded(mesh, dev))))
+    step = torch.load(os.path.join(work, "step.pt"), weights_only=False)
+    out["step"] = path("dist_step", lambda: _cpu(dist_step_run(mesh, step)))
+    path("dist_stages", lambda: dist_stages_run(
+        PipelineConfig.from_json(jobs["stages"]["cfg"]), ArtifactStore(jobs["stages"]["root"]),
+        dev))
+    path("dist_loop_f32", lambda: tdist.run_matching_distributed(
+        PipelineConfig.from_json(jobs["loop"]["cfg"]), ArtifactStore(jobs["loop"]["root"]),
+        device=dev))
+    out["launches"], out["replays"] = launches, replays
+    torch.save(out, os.path.join(work, f"rank{rank}.pt"))
+    torch.distributed.destroy_process_group()
+
+
+def _same_tables(sa, sb, table):
+    """Whether two stores' tables hold the same rows in the same order,
+    bitwise."""
+    ta, tb = sa.read_table(table), sb.read_table(table)
+    if sorted(ta) != sorted(tb):
+        return False
+    return all(len(ta[c]) == len(tb[c]) and all(
+        np.array_equal(np.asarray(x), np.asarray(y)) for x, y in zip(ta[c], tb[c]))
+        for c in ta)
+
+
+def _same_params(a, b):
+    return all(torch.equal(getattr(a, f), getattr(b, f))
+               for f in ("qvec", "tvec", "log_f", "k1", "xyz"))
+
+
+def scaleout_phase(dev, bf16_run, frames, gt, root):
+    """Phase 13: the scale-out layer. (a) World 1 on NCCL in this process:
+    the sharded BA bitwise ``bundle_adjust`` (dense at M=256, P=8192, T=16;
+    CG at M=1024, P=49152, T=4), the fused step on the bf16 slice's
+    extraction with its matches against kernel 1's resident plan, pair by
+    pair, and the multi-host stages. (b) SCALE_OUT_RANKS gloo ranks as
+    subprocesses sharing cuda:0: the same BA (final cost within
+    DIST_BA_RTOL of world 1; the ranks bitwise equal), the same step, the
+    multi-host stages on bench's 16-image set (extraction, matching,
+    mapping shards and depth maps bitwise world 1's; the merge >= 15/16 at
+    ATE <= 0.012) and the 48-image loop set's f32 matching with closure on
+    (no pair twice, the table world 1's). Returns ({path: launches},
+    summary)."""
+    from scanner_colmap_tpu_torch import kernels
+    from scanner_colmap_tpu_torch.ops import ba, matching
+    from scanner_colmap_tpu_torch.parallel import dist as tdist
+    from scanner_colmap_tpu_torch.parallel.mesh import make_mesh
+    from scanner_colmap_tpu_torch.pipeline import ArtifactStore, stages
+
+    t_phase = time.time()
+    work = os.path.join(root, "scaleout")
+    os.makedirs(work)
+    paths, summary, replays = {}, {}, {}
+
+    def new_store(name, precision, tables=(), src=None):
+        """A slice-configured store with bench's frames, or with the given
+        tables of the store at ``src``."""
+        c = slice_config(os.path.join(work, name), precision)
+        s = ArtifactStore(c.store_path)
+        if src is None:
+            stages.prepare_images(c, s, frames=[(f, gt["focal"]) for f in frames])
+        for t in tables:
+            shutil.copytree(os.path.join(src, t), os.path.join(s.root, t))
+        return c, s
+
+    loop_src = os.path.join(root, "loop_auto")
+    tdist.maybe_init_distributed(f"file://{os.path.join(work, 'nccl_init')}", 1, 0,
+                                 device=dev)          # NCCL on the card
+    try:
+        mesh = make_mesh(device=dev)
+        # (a) world 1: the sharded BA against the single-process solve
+        plain = dist_ba_runs(mesh, dev, solve=ba.bundle_adjust)
+        w1_ba, paths["dist_ba"], replays["dist_ba"] = tapped_path(
+            lambda: dist_ba_runs(mesh, dev), "dist_ba")
+        profiled_ba = dist_ba_runs(mesh, dev, profile=True)
+        for tag, M, P, T, solver, iters in DIST_BA_SHAPES:
+            q, info, ms, _, _ = plain[tag]
+            q1, info1, ms1, rerun_same, _ = w1_ba[tag]
+            same = _same_params(q, q1) and torch.equal(info["final_cost"], info1["final_cost"])
+            summary[f"ba_{tag}_world1"] = {
+                "M": M, "P": P, "T": T, "lm_iterations": int(info1["iterations"]),
+                "initial_cost": float(info1["initial_cost"]),
+                "final_cost": float(info1["final_cost"]),
+                "ms_per_lm_iteration_cold_warm": ms1,
+                "bundle_adjust_ms_per_lm_iteration_cold_warm": ms,
+                "profiled_run": profiled_ba[tag][4],
+                "bitwise_equal_to_bundle_adjust": same, "reruns_bitwise_equal": rerun_same}
+            if (not same or not rerun_same
+                    or not float(info1["final_cost"]) < float(info1["initial_cost"])):
+                raise AssertionError(f"scale-out: world-1 {tag} BA is not bundle_adjust's "
+                                     f"bitwise, a rerun differs, or its cost did not fall: "
+                                     f"{summary}")
+
+        # the fused step on the slice's extraction, against the resident plan
+        cfg, store = bf16_run[:2]
+        prob = step_problem(store, bf16_run[3], SCALE_OUT_RANKS)
+        (idx1, ok1, qs1, infos1, ms_step1), paths["dist_step"], replays["dist_step"] = \
+            tapped_path(lambda: dist_step_run(mesh, prob), "dist_step")
+        n_img, K = prob["valid"].shape
+        pairs = [(a, a + j) for a in range(n_img) for j in range(1, DIST_STEP_OVERLAP + 1)
+                 if a + j < n_img]
+        pool = matching.normalize_pool(prob["desc"].to(dev))
+        ab = torch.tensor(pairs, dtype=torch.int32, device=dev)
+        ref = matching.match_pairs_pool(pool, prob["valid"].to(dev), ab[:, 0].contiguous(),
+                                        ab[:, 1].contiguous())
+        mine = torch.stack([idx1[a, b - a - 1] for a, b in pairs]).long()
+        same_pairs = int((mine == ref).all(dim=1).sum())
+        summary["step_world1"] = {
+            "images": n_img, "K": K, "overlap": DIST_STEP_OVERLAP, "pairs": len(pairs),
+            "pairs_equal_to_resident_plan": same_pairs, "matches": int(ok1.sum()),
+            "points": int(prob["bundle"][0].xyz.shape[0]),
+            "ba_initial_cost": float(infos1["initial_cost"]),
+            "ba_final_cost": float(infos1["final_cost"]), "ms": ms_step1,
+            "launches": paths["dist_step"]}
+        log("scale-out (a): " + json.dumps({k: v for k, v in summary.items()}))
+        if (same_pairs != len(pairs) or paths["dist_step"]["pair_match"] != 1
+                or not float(infos1["final_cost"]) <= float(infos1["initial_cost"])):
+            raise AssertionError(f"scale-out: the world-1 step: {summary['step_world1']}")
+
+        # the multi-host stages at world 1
+        cfg1, store1 = new_store("stages_w1", "bf16")
+        t = time.time()
+        model1, paths["dist_stages"], replays["dist_stages"] = tapped_path(
+            lambda: dist_stages_run(cfg1, store1, dev), "dist_stages")
+        summary["stages_world1_s"] = time.time() - t
+        cfgl1, storel1 = new_store("loop_w1", "f32", ("frames", "extraction"), loop_src)
+        cfgl1.matching.loop_closure = "on"
+        _, paths["dist_loop_f32"], replays["dist_loop_f32"] = tapped_path(
+            lambda: tdist.run_matching_distributed(cfgl1, storel1, device=dev),
+            "dist_loop_f32")
+    finally:
+        if torch.distributed.is_initialized():
+            torch.distributed.destroy_process_group()
+
+    # (b) the ranks
+    cfg2, store2 = new_store("stages_w2", "bf16")
+    cfgl2, storel2 = new_store("loop_w2", "f32", ("frames", "extraction"), loop_src)
+    cfgl2.matching.loop_closure = "on"
+    with open(os.path.join(work, "jobs.json"), "w") as f:
+        json.dump({"device": str(dev),
+                   "stages": {"root": store2.root, "cfg": cfg2.to_json()},
+                   "loop": {"root": storel2.root, "cfg": cfgl2.to_json()}}, f)
+    torch.save(prob, os.path.join(work, "step.pt"))
+    t = time.time()
+    logs = [open(os.path.join(work, f"rank{r}.log"), "w") for r in range(SCALE_OUT_RANKS)]
+    procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__), "--scaleout-rank",
+                               str(r), work], stdout=logs[r], stderr=subprocess.STDOUT)
+             for r in range(SCALE_OUT_RANKS)]
+    try:
+        for p in procs:
+            p.wait(timeout=max(RANK_TIMEOUT_S - (time.time() - t), 1))
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        for f in logs:
+            f.close()
+    ranks_s = time.time() - t
+    for r, p in enumerate(procs):
+        if p.returncode != 0:
+            with open(os.path.join(work, f"rank{r}.log")) as f:
+                tail = f.read()[-6000:]
+            raise AssertionError(f"scale-out: rank {r} exited {p.returncode}:\n{tail}")
+    res = [torch.load(os.path.join(work, f"rank{r}.pt"), weights_only=False)
+           for r in range(SCALE_OUT_RANKS)]
+
+    # the sharded BA: ranks bitwise equal, costs within DIST_BA_RTOL of world 1
+    for tag, M, P, T, solver, iters in DIST_BA_SHAPES:
+        qs = [r["ba"][tag][0] for r in res]
+        costs = [float(r["ba"][tag][1]["final_cost"]) for r in res]
+        c1 = float(w1_ba[tag][1]["final_cost"])
+        same = all(all(torch.equal(qs[0][f], q[f]) for f in qs[0]) for q in qs[1:]) \
+            and len(set(costs)) == 1 and all(r["ba"][tag][3] for r in res)
+        summary[f"ba_{tag}_world{SCALE_OUT_RANKS}"] = {
+            "final_cost": costs[0], "world1_final_cost": c1,
+            "rel_diff": abs(costs[0] - c1) / c1,
+            "ms_per_lm_iteration_cold_warm": [r["ba"][tag][2] for r in res],
+            "ranks_and_reruns_bitwise_equal": same}
+        if not same or not abs(costs[0] - c1) <= DIST_BA_RTOL * c1:
+            raise AssertionError(f"scale-out: {tag} BA in {SCALE_OUT_RANKS} ranks: {summary}")
+
+    # the padded BA: the first shard is world 1's whole problem and every sum
+    # adds the other shards' zeros, so it is world 1's solve bitwise
+    q1, info1 = w1_ba["dense"][:2]
+    P = q1.xyz.shape[0]
+    qp = [r["ba_padded"][0] for r in res]
+    same_ranks = all(all(torch.equal(qp[0][f], q[f]) for f in qp[0]) for q in qp[1:])
+    same_w1 = (all(torch.equal(qp[0][f], getattr(q1, f).cpu())
+                   for f in ("qvec", "tvec", "log_f", "k1"))
+               and torch.equal(qp[0]["xyz"][:P], q1.xyz.cpu())
+               and torch.equal(res[0]["ba_padded"][1]["final_cost"], info1["final_cost"].cpu()))
+    pad_calls = [r["replays"]["dist_ba"]["schur"].get("padding_calls", 0) for r in res]
+    summary[f"ba_padded_world{SCALE_OUT_RANKS}"] = {
+        "points": P, "padded_to": int(qp[0]["xyz"].shape[0]),
+        "ranks_bitwise_equal": same_ranks, "bitwise_equal_world1_dense": same_w1,
+        "padding_stays_zero": not qp[0]["xyz"][P:].any().item(),
+        "kernel2_padding_calls_by_rank": pad_calls}
+    if not (same_ranks and same_w1 and not qp[0]["xyz"][P:].any() and all(pad_calls[1:])):
+        raise AssertionError(f"scale-out: the padded BA in {SCALE_OUT_RANKS} ranks: "
+                             f"{summary[f'ba_padded_world{SCALE_OUT_RANKS}']}")
+
+    # the step: the ranks' matches are world 1's, their BA agrees
+    idx2 = torch.cat([r["step"][0] for r in res])
+    costs = [float(r["step"][3]["final_cost"]) for r in res]
+    c1 = float(infos1["final_cost"])
+    same_xyz = all(torch.equal(res[0]["step"][2]["xyz"], r["step"][2]["xyz"]) for r in res)
+    summary[f"step_world{SCALE_OUT_RANKS}"] = {
+        "matches_equal_world1": bool(torch.equal(idx2, idx1.cpu())),
+        "ba_final_cost": costs[0], "ranks_bitwise_equal": same_xyz and len(set(costs)) == 1,
+        "ms": [r["step"][4] for r in res]}
+    if (not torch.equal(idx2, idx1.cpu()) or not same_xyz or len(set(costs)) != 1
+            or not abs(costs[0] - c1) <= DIST_BA_RTOL * c1):
+        raise AssertionError(f"scale-out: the step in {SCALE_OUT_RANKS} ranks: {summary}")
+
+    # the stages: tables bitwise world 1's, the model within the slice's limits
+    same_tables = {t: _same_tables(store2, store1, t)
+                   for t in ("extraction", "matching", "mapping", "patch_match")}
+    model2 = stages.load_model(store2)
+    n_sub = store2.num_rows("mapping")
+    ate2 = check_model("scale-out merge", model2, gt, n_sub)
+    lc = store2.read_manifest("matching_shard_0")["meta"]["loop_closure"]
+    prs = [tuple(p) for p in np.asarray(storel2.read_table("matching")["pair_image_ids"])]
+    lcs = [storel2.read_manifest(f"matching_shard_{r}")["meta"]["loop_closure"]
+           for r in range(SCALE_OUT_RANKS)]
+    far = int(sum(abs(a - b) > LOOP_FAR for a, b in prs))
+    loop_same = _same_tables(storel2, storel1, "matching")
+    rank_paths = {p: {k: sum(r["launches"][p][k] for r in res) for k in res[0]["launches"][p]}
+                  for p in res[0]["launches"]}
+    summary[f"stages_world{SCALE_OUT_RANKS}"] = {
+        "tables_equal_world1": same_tables, "registered": model2.num_registered,
+        "submodels": n_sub, "ate": ate2, "same_model_as_world1": same_model(model2, model1),
+        "depth_maps": store2.num_rows("patch_match"), "loop_closure_16": lc,
+        "loop_set": {"pairs": len(prs), "unique_pairs": len(set(prs)), "far_pairs": far,
+                     "candidates": [m["n_candidates"] for m in lcs],
+                     "candidates_total": lcs[0]["candidates_total"],
+                     "table_equals_world1": loop_same},
+        "ranks_s": ranks_s, "launches_by_path_summed_over_ranks": rank_paths}
+    for p, c in rank_paths.items():
+        paths[f"{p}_{SCALE_OUT_RANKS}ranks"] = c
+    for r, x in enumerate(res):
+        replays.update({f"{p}_rank{r}": v for p, v in x["replays"].items()})
+    summary["replays"] = replays
+    summary["phase_s"] = time.time() - t_phase
+    log("scale-out (b): " + json.dumps(summary[f"ba_dense_world{SCALE_OUT_RANKS}"]) + " "
+        + json.dumps(summary[f"ba_cg_world{SCALE_OUT_RANKS}"]))
+    log("scale-out (b): " + json.dumps(summary[f"ba_padded_world{SCALE_OUT_RANKS}"]))
+    log("scale-out (b): " + json.dumps(summary[f"step_world{SCALE_OUT_RANKS}"]))
+    log("scale-out (b): " + json.dumps(summary[f"stages_world{SCALE_OUT_RANKS}"]))
+    if not all(same_tables.values()) or not loop_same or len(prs) != len(set(prs)):
+        raise AssertionError(f"scale-out: the {SCALE_OUT_RANKS}-rank tables differ from "
+                             "world 1's, or a loop pair was matched twice")
+    if not (lcs[0]["enabled"] and sum(m["n_candidates"] for m in lcs)
+            == lcs[0]["candidates_total"] > 0 and far > 0):
+        raise AssertionError(f"scale-out: the loop set's closure: {lcs}, {far} far pairs")
+    need = {"dist_ba": ("schur",), "dist_step": ("pair_match", "schur"),
+            "dist_stages": ("pair_match", "schur", "plane_cost"), "dist_loop_f32": ("top2",)}
+    for p, names in need.items():
+        for src in (p, f"{p}_{SCALE_OUT_RANKS}ranks"):
+            if any(paths[src][n] <= 0 for n in names):
+                raise AssertionError(f"scale-out: {names} not all launched on {src}: "
+                                     f"{paths[src]}")
+    log(f"scale-out: phase 13 took {summary['phase_s']:.2f} s ({ranks_s:.2f} s in the "
+        f"{SCALE_OUT_RANKS} ranks); launches by path {json.dumps(paths)}")
+    return paths, summary
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device; this smoke run needs a card")
@@ -1732,6 +2365,10 @@ def main():
         cli_paths, res["dense"]["cli_real"] = cli_dense_phase(root, real_gt)
         paths.update(cli_paths)
         phase_s["12_dense"] = time.time() - t
+        t = time.time()
+        scale_out_paths, res["scale_out"] = scaleout_phase(dev, bf16_run, frames, gt, root)
+        paths.update(scale_out_paths)
+        phase_s["13_scaleout"] = time.time() - t
     t = time.time()
     scale_paths, res["cg_scale"] = cg_scale_phase(dev)
     paths.update(scale_paths)
@@ -1746,6 +2383,8 @@ def main():
     log("cg scale: " + json.dumps(res.pop("cg_scale")))
     log("verification: " + json.dumps(res.pop("verification")))
     log("dense summary: " + json.dumps(res.pop("dense")))
+    replays = res["scale_out"].pop("replays")
+    log("scale-out summary: " + json.dumps(res.pop("scale_out")))
     # each kernel's main-path count comes from the run whose path carries it
     launches = {"pair_match": bf16_run[2]["pair_match"], "schur": f32_run[2]["schur"],
                 "top2": f32_run[2]["top2"], "plane_cost": paths["dense_192"]["plane_cost"]}
@@ -1754,7 +2393,9 @@ def main():
         by_path = {p: c[name] for p, c in paths.items() if c[name]}
         rows.append({"name": name, "route": "cuda", "source": source,
                      "replaces": replaces, "launches": launches[name],
-                     "launches_by_path": by_path, **res[name]})
+                     "launches_by_path": by_path, **res[name],
+                     "replayed_on_scale_out_paths": {p: r[name] for p, r in replays.items()
+                                                     if name in r}})
     print(json.dumps({"kernels": rows}))
     print(card)
     print(json.dumps({"ok": True, "device": {
@@ -1763,4 +2404,7 @@ def main():
 
 
 if __name__ == "__main__":
-    main()
+    if sys.argv[1:2] == ["--scaleout-rank"]:
+        scaleout_rank(int(sys.argv[2]), sys.argv[3])
+    else:
+        main()

@@ -93,11 +93,13 @@ def _check(cam_idx, Wc, Vinv, M):
         raise ValueError(f"cam_idx must be (P, T) int32, got "
                          f"{tuple(cam_idx.shape)} {cam_idx.dtype}")
     P, T = cam_idx.shape
-    if Wc.dtype != torch.float32 or tuple(Wc.shape) != (P, T, NUM_CAM_PARAMS, 3):
+    # f32; the plain version also sums f64 (CPU tensors only)
+    dtypes = (torch.float32,) if Wc.is_cuda else (torch.float32, torch.float64)
+    if Wc.dtype not in dtypes or tuple(Wc.shape) != (P, T, NUM_CAM_PARAMS, 3):
         raise ValueError(f"Wc must be ({P}, {T}, 8, 3) f32, got "
                          f"{tuple(Wc.shape)} {Wc.dtype}")
-    if Vinv.dtype != torch.float32 or tuple(Vinv.shape) != (P, 3, 3):
-        raise ValueError(f"Vinv must be ({P}, 3, 3) f32, got "
+    if Vinv.dtype != Wc.dtype or tuple(Vinv.shape) != (P, 3, 3):
+        raise ValueError(f"Vinv must be ({P}, 3, 3) of Wc's dtype, got "
                          f"{tuple(Vinv.shape)} {Vinv.dtype}")
     if M < 1:
         raise ValueError("M must be positive")

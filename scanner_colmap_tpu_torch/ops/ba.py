@@ -17,6 +17,11 @@
 - the LM loop (damping adaptation, accept/reject) runs on the host over
   device tensors; it stops at convergence, which gives the same result as
   the reference's fixed-trip loop whose converged trips are no-ops
+- ``group``: with the points sharded over the ranks of a
+  ``torch.distributed`` process group, the camera-side sums are summed over
+  the ranks (``all_reduce``) where the JAX package ``psum``s over its mesh
+  axis, before the intrinsic priors, which count once; every rank then
+  solves the same camera system (``parallel/dist_ba.py``)
 
 Camera model inside BA: per-image SIMPLE_RADIAL (pose 6 + log focal + k1),
 residuals in pixels with a Cauchy loss.
@@ -147,8 +152,22 @@ def _jacobians(params: BundleParams, obs: BundleObs, cfg: BundleConfig):
     return r, w, J_cam, J_pt, ok
 
 
-def robust_cost(params: BundleParams, obs: BundleObs, cfg: BundleConfig):
-    """(Cauchy cost + intrinsic priors, mean pixel error, observation count)."""
+def _all_reduce_sum(group, *tensors: torch.Tensor):
+    """The tensors (of one dtype) summed over the ranks of ``group``, in one
+    collective; every rank gets the same values. Unchanged for
+    ``group=None``."""
+    if group is None:
+        return tensors
+    flat = torch.cat([t.reshape(-1) for t in tensors])
+    torch.distributed.all_reduce(flat, group=group)
+    return tuple(part.reshape(t.shape) for part, t in
+                 zip(flat.split([t.numel() for t in tensors]), tensors))
+
+
+def robust_cost(params: BundleParams, obs: BundleObs, cfg: BundleConfig, group=None):
+    """(Cauchy cost + intrinsic priors, mean pixel error, observation count).
+    With ``group``, the sums run over every rank's points; the priors of
+    the replicated cameras are added after, once."""
     r, ok, _ = _project_residual(params, obs, cfg)
     rn2 = torch.sum(r * r, dim=-1)
     s2 = cfg.loss_scale ** 2
@@ -157,6 +176,11 @@ def robust_cost(params: BundleParams, obs: BundleObs, cfg: BundleConfig):
     cost = torch.sum(torch.where(ok, c, zero))
     n = ok.sum()
     err_sum = torch.sum(torch.where(ok, torch.sqrt(rn2), zero))
+    if group is not None:
+        # one f64 collective: a world of one gives the f32 sums back exactly
+        cost, err_sum, n = _all_reduce_sum(group, torch.stack(
+            [cost.double(), err_sum.double(), n.double()]))[0].unbind()
+        cost, err_sum, n = cost.to(c.dtype), err_sum.to(c.dtype), n.long()
     cost = cost + 0.5 * torch.sum(
         cfg.prior_weight_f * (params.log_f - cfg.prior_log_f) ** 2
         + cfg.prior_weight_k * (params.k1 - cfg.prior_k1) ** 2)
@@ -252,10 +276,11 @@ def schur_inputs(params, obs, cfg, lam: float = 1e-4):
     return obs.cam_idx.to(torch.int32).contiguous(), terms[7], terms[5]
 
 
-def _build_normal_eqs(params, obs, cfg, lam, seg=None):
+def _build_normal_eqs(params, obs, cfg, lam, seg=None, group=None):
     """Reduced camera system: (S (MC, MC), rhs (MC,), Vinv (P,3,3),
     g_p (P,3), Wc (P,T,8,3), pmask (MC,)). ``seg``: the solve's
-    ``cam_segments`` plan."""
+    ``cam_segments`` plan; ``group``: S_pt, U, g_c and the right-hand
+    side's point term are summed over its ranks (JAX ``ops/ba.py:268-271``)."""
     M = params.qvec.shape[0]
     MC = M * NUM_CAM_PARAMS
     dtype, dev = params.xyz.dtype, params.xyz.device
@@ -269,6 +294,7 @@ def _build_normal_eqs(params, obs, cfg, lam, seg=None):
     sums = _segsum_cam(torch.cat([
         torch.einsum("ptri,ptrj->ptij", wJc, J_cam).flatten(2),
         torch.einsum("ptri,ptr->pti", wJc, r), WVg], dim=2), obs.cam_idx, M, seg)
+    S_pt, sums = _all_reduce_sum(group, S_pt, sums)
     U = sums[:, :64].reshape(M, NUM_CAM_PARAMS, NUM_CAM_PARAMS)
     g_c = -sums[:, 64:72]
     rhs_pt = sums[:, 72:].reshape(MC)
@@ -341,9 +367,9 @@ def _solve_pos(S, rhs):
     return torch.where(good, x, torch.zeros_like(x))
 
 
-def _lm_trial(params, obs, cfg, lam, seg=None):
+def _lm_trial(params, obs, cfg, lam, seg=None, group=None):
     """Solve the damped system once; return candidate params."""
-    S, rhs, Vinv, g_p, Wc, pmask = _build_normal_eqs(params, obs, cfg, lam, seg)
+    S, rhs, Vinv, g_p, Wc, pmask = _build_normal_eqs(params, obs, cfg, lam, seg, group)
     if cfg.cam_group is not None:
         A_apply = _intrinsic_tie_matrix(cfg.cam_group, params.qvec.shape[0], S.dtype)
         A = A_apply * pmask.to(S.dtype)[:, None]
@@ -407,7 +433,7 @@ def _cg_products(Wc: torch.Tensor, Vinv: torch.Tensor, xc: torch.Tensor) -> torc
 
 
 def _lm_trial_cg(params, obs, cfg, lam, cg_iters: int, cg_tol: float = 1e-4,
-                 plan: Optional[CGPlan] = None):
+                 plan: Optional[CGPlan] = None, group=None):
     """LM trial solving the Schur camera system matrix-free with
     Schur-Jacobi preconditioned CG (the JAX ``_lm_trial_cg``, scatter plan).
 
@@ -420,7 +446,9 @@ def _lm_trial_cg(params, obs, cfg, lam, cg_iters: int, cg_tol: float = 1e-4,
     values the JAX ``lax.cond`` gives), and nothing in it syncs with the
     host. Shared-camera intrinsic ties apply functionally (leader intrinsics
     broadcast to their slots, slot rows summed into the leader), so tied
-    slots end bitwise equal."""
+    slots end bitwise equal. With ``group``, the build pass's camera sums
+    and each matvec's (M, 8) point term are summed over its ranks (JAX
+    ``ops/ba.py:476-480`` and ``:548-550``)."""
     M = params.qvec.shape[0]
     P, T = obs.cam_idx.shape
     dtype, dev = params.xyz.dtype, params.xyz.device
@@ -444,6 +472,7 @@ def _lm_trial_cg(params, obs, cfg, lam, cg_iters: int, cg_tol: float = 1e-4,
             torch.einsum("ptij,pj->pti", Wc_c, y0),
             (WV * Wc_c).sum(-1)], dim=2), o_c.cam_idx, M, seg)
         Wc[s:e], Vinv[s:e], g_p[s:e] = Wc_c, Vinv_c, g_p_c
+    acc, = _all_reduce_sum(group, acc)
     U = acc[:, :64].reshape(M, NUM_CAM_PARAMS, NUM_CAM_PARAMS).clone()
     g_c = -acc[:, 64:72]
     rhs_sub, d_sub = acc[:, 72:80], acc[:, 80:88]
@@ -470,19 +499,19 @@ def _lm_trial_cg(params, obs, cfg, lam, cg_iters: int, cg_tol: float = 1e-4,
 
         reduce_ = expand
     else:
-        group = cfg.cam_group.long()
-        is_leader = group == torch.arange(M, device=dev)
+        leader = cfg.cam_group.long()
+        is_leader = leader == torch.arange(M, device=dev)
         intr_alive = torch.zeros((M, 2), dtype=torch.int64, device=dev).scatter_reduce(
-            0, group[:, None].expand(M, 2), pmask[:, 6:8].long(), reduce="amax") > 0
+            0, leader[:, None].expand(M, 2), pmask[:, 6:8].long(), reduce="amax") > 0
         # reduced coordinates: pose per slot; intrinsics live on group leaders
         rmask = torch.cat([pmask[:, :6], intr_alive & is_leader[:, None]], dim=1)
 
         def expand(xr):      # A_apply: leader intrinsics broadcast to all slots
-            return torch.cat([xr[:, :6], xr[group, 6:8]], dim=1)
+            return torch.cat([xr[:, :6], xr[leader, 6:8]], dim=1)
 
         def reduce_(x):      # A^T: intrinsic rows sum into their leader slot
             return torch.cat([x[:, :6], _segsum_cam(
-                x[:, None, 6:8], group[:, None], M, plan.seg_group)], dim=1)
+                x[:, None, 6:8], leader[:, None], M, plan.seg_group)], dim=1)
 
     pm, rm = pmask.to(dtype), rmask.to(dtype)
     ci = obs.cam_idx.long()
@@ -494,6 +523,7 @@ def _lm_trial_cg(params, obs, cfg, lam, cg_iters: int, cg_tol: float = 1e-4,
             z = _cg_products(Wc, Vinv, _cg_gather(x, ci))
             with torch.profiler.record_function("ba.cg.segsum"):
                 sub = _segsum_cam(z, obs.cam_idx, M, plan.seg_all)
+            sub, = _all_reduce_sum(group, sub)
             return reduce_((ux - sub) * pm) * rm
 
     b = reduce_(rhs * pm) * rm
@@ -529,7 +559,7 @@ def _lm_trial_cg(params, obs, cfg, lam, cg_iters: int, cg_tol: float = 1e-4,
 def bundle_adjust(params: BundleParams, obs: BundleObs, cfg: BundleConfig,
                   max_iterations: int = 25, initial_lambda: float = 1e-4,
                   function_tolerance: float = 1e-6, solver: str = "dense",
-                  cg_iters: int = 64):
+                  cg_iters: int = 64, group=None):
     """LM with accept/reject damping adaptation.
 
     solver="dense" factorizes the Schur complement (kernel 2 builds it);
@@ -537,7 +567,9 @@ def bundle_adjust(params: BundleParams, obs: BundleObs, cfg: BundleConfig,
     iterations per trial, the build pass in point chunks of
     ``CG_CHUNK_OBS`` observations). Returns (params, info) with info = {initial_cost,
     final_cost, iterations, mean_reproj_px, num_obs, final_lambda} as
-    tensors."""
+    tensors. ``group``: the points (obs, xyz, pt_valid) are this rank's
+    share and the cameras are replicated; every rank reads the same summed
+    cost, so all take the same branches and make the same collectives."""
     if solver not in ("dense", "cg"):
         raise ValueError(f"solver must be 'dense' or 'cg', got {solver!r}")
     obs = dataclasses.replace(obs, cam_idx=obs.cam_idx.to(torch.int32).contiguous())
@@ -546,20 +578,20 @@ def bundle_adjust(params: BundleParams, obs: BundleObs, cfg: BundleConfig,
         plan = cg_plan(obs, cfg, M)
 
         def trial(p, lam):
-            return _lm_trial_cg(p, obs, cfg, lam, cg_iters, plan=plan)
+            return _lm_trial_cg(p, obs, cfg, lam, cg_iters, plan=plan, group=group)
     else:
         seg = cam_segments(obs.cam_idx, M)
 
         def trial(p, lam):
-            return _lm_trial(p, obs, cfg, lam, seg)
-    cost0, _, _ = robust_cost(params, obs, cfg)
+            return _lm_trial(p, obs, cfg, lam, seg, group)
+    cost0, _, _ = robust_cost(params, obs, cfg, group)
     p, cost = params, cost0
     lam = torch.tensor(initial_lambda, dtype=params.xyz.dtype,
                        device=params.xyz.device)
     n_applied = 0
     for _ in range(max_iterations):
         cand = trial(p, lam)
-        new_cost, _, _ = robust_cost(cand, obs, cfg)
+        new_cost, _, _ = robust_cost(cand, obs, cfg, group)
         accept = new_cost < cost
         p = cand.where(accept, p)
         cost2 = torch.where(accept, new_cost, cost)
@@ -570,7 +602,7 @@ def bundle_adjust(params: BundleParams, obs: BundleObs, cfg: BundleConfig,
         n_applied += 1
         if bool((accept & (rel < function_tolerance)) | (lam > 1e5)):
             break
-    _, mean_px, n_obs = robust_cost(p, obs, cfg)
+    _, mean_px, n_obs = robust_cost(p, obs, cfg, group)
     return p, {"initial_cost": cost0, "final_cost": cost,
                "iterations": n_applied, "mean_reproj_px": mean_px,
                "num_obs": n_obs, "final_lambda": lam}

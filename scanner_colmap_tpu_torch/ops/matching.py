@@ -17,7 +17,9 @@ Two kernels carry the matcher, by precision:
 
 The resident pool (``match_pairs_pool``) and the banks of the banked plan
 (``match_bank``) run the same kernels on the same normalized rows, so the
-two plans give the same table. Guided matching is plain torch.
+two plans give the same table. ``window_bank`` makes a bank of raw
+descriptors, as the sharded step and ``match_window`` match them. Guided
+matching is plain torch.
 """
 
 from __future__ import annotations
@@ -104,6 +106,42 @@ def decide(best, second, bidx, rev, max_ratio: float = 0.8,
         rows = torch.arange(best.shape[1], device=best.device)
         ok &= torch.gather(rev, 1, bidx) == rows
     return torch.where(ok, bidx, torch.full_like(bidx, -1))
+
+
+def window_bank(desc: torch.Tensor, valid: torch.Tensor, precision: str = "bf16"):
+    """Raw descriptors (N, K, 128) with validity (N, K) as a bank for
+    ``match_bank``: invalid rows zeroed (the stage's pool holds them so; a
+    row left in would take part in the cross check's reverse argbest),
+    normalized for ``precision``'s kernel, K padded to kernel 1's row tile
+    with invalid slots. Returns (bank (N, Kp, 128), valid (N, Kp) bool)."""
+    N, K = valid.shape
+    Kp = -(-max(K, 1) // 64) * 64
+    valid = valid.to(torch.bool)
+    raw = torch.zeros((N, Kp, 128), dtype=torch.float32, device=desc.device)
+    raw[:, :K] = torch.where(valid[..., None], desc.to(torch.float32), 0.0)
+    vpad = torch.zeros((N, Kp), dtype=torch.bool, device=desc.device)
+    vpad[:, :K] = valid
+    return normalize_bank(raw, precision), vpad
+
+
+def match_window(desc: torch.Tensor, valid: torch.Tensor, max_ratio: float = 0.8,
+                 max_distance: float = 0.7, cross_check: bool = True,
+                 precision: str = "bf16"):
+    """Sequential-overlap matching of one window (JAX ``match_window``):
+    desc (W, K, 128), valid (W, K); image 0 is the pivot, images 1..W-1
+    its window. Returns (match_idx (W-1, K) int32 into each window image or
+    -1, ok (W-1, K) bool).
+
+    The window is one bank (``window_bank``) and its W-1 pairs (0, j) one
+    ``match_bank`` launch: kernel 1 at bf16 (bf16 operands, f32 sums: the
+    JAX einsum's numerics), kernel 3 at f32."""
+    W, K = valid.shape
+    bank, vb = window_bank(desc, valid, precision)
+    ai = torch.zeros(W - 1, dtype=torch.int32, device=bank.device)
+    bi = torch.arange(1, W, dtype=torch.int32, device=bank.device)
+    idx = match_bank(bank, vb, ai, bi, max_ratio, max_distance, cross_check,
+                     precision)[:, :K]
+    return idx.to(torch.int32), idx >= 0
 
 
 def match_descriptors(desc1: torch.Tensor, desc2: torch.Tensor,

@@ -45,7 +45,7 @@ import math
 import os
 import threading
 import time
-from typing import Dict, Optional, Sequence
+from typing import Callable, Dict, Optional, Sequence
 
 import numpy as np
 import torch
@@ -157,13 +157,14 @@ def prepare_images(cfg: PipelineConfig, store: Optional[ArtifactStore] = None,
     return len(grays)
 
 
-def _frame_items(store: ArtifactStore, max_image_size: int, canvas):
+def _frame_items(store: ArtifactStore, max_image_size: int, canvas, rows):
     """Yield per-frame extraction inputs (uint8 canvas, valid (h, w),
-    downscale factor, EXIF-or-given focal in original pixels)."""
+    downscale factor, EXIF-or-given focal in original pixels) of the given
+    frame rows."""
     frames = store.read_table("frames")
     paths = [p.decode() for p in frames["path"]]
     in_memory = "pixels" in frames
-    for n, path in enumerate(paths):
+    for n in rows:
         if in_memory:
             h, w = int(frames["height"][n]), int(frames["width"][n])
             gray = np.asarray(frames["pixels"][n]).reshape(h, w)
@@ -171,7 +172,7 @@ def _frame_items(store: ArtifactStore, max_image_size: int, canvas):
                    "valid_hw": np.array([h, w], np.int32), "scale": 1.0,
                    "exif_focal_px": float(frames["focal_px"][n])}
         else:
-            yield image_ops.load_for_extraction(path, max_image_size, canvas)
+            yield image_ops.load_for_extraction(paths[n], max_image_size, canvas)
 
 
 # ---------------------------------------------------------------------------
@@ -179,17 +180,26 @@ def _frame_items(store: ArtifactStore, max_image_size: int, canvas):
 # ---------------------------------------------------------------------------
 
 def run_extraction(cfg: PipelineConfig, store: Optional[ArtifactStore] = None,
-                   device=None, out_table: str = "extraction"):
+                   device=None, out_table: str = "extraction",
+                   frame_slice: Optional[tuple] = None):
     """SIFT + EXIF camera init per image. Keypoints come back valid-first,
-    so each image's table row is the [:count] prefix of its slots."""
+    so each image's table row is the [:count] prefix of its slots.
+
+    frame_slice=(k, n): extract only every n-th frame from k (the shard of
+    ``parallel/dist.run_extraction_distributed``); each image's row is the
+    one the whole run writes."""
     store = store or ArtifactStore(cfg.store_path)
     dev = devlib.resolve(device)
     s = cfg.sift
     canvas = (_round_up(s.max_image_size, 128),) * 2
     frame_ids = np.asarray(store.read_table("frames", ["image_id"])["image_id"], np.int64)
+    rows = range(len(frame_ids))
+    if frame_slice is not None:
+        rows = rows[frame_slice[0]::frame_slice[1]]
+        frame_ids = frame_ids[np.asarray(rows, np.int64)]
     t0 = time.time()
     keypoints, descriptors, cam_rows, num_feats = [], [], [], []
-    for item in _frame_items(store, s.max_image_size, canvas):
+    for item in _frame_items(store, s.max_image_size, canvas, rows):
         img = torch.as_tensor(item["image"], device=dev).to(torch.float32) * (1.0 / 255.0)
         feats = sift_ops.extract(
             img, torch.as_tensor(item["valid_hw"], device=dev),
@@ -507,7 +517,9 @@ def _bank_rows(image_ids, desc, rows, K_max: int, dtype):
 
 
 def run_matching(cfg: PipelineConfig, store: Optional[ArtifactStore] = None,
-                 device=None, out_table: str = "matching"):
+                 device=None, out_table: str = "matching",
+                 schedule_slice: Optional[tuple] = None,
+                 verify_width: Optional[Callable[[int], int]] = None):
     """Overlap-window matching, then loop-closure candidates, then
     two-view verification of every pair with enough matches (with the real
     intrinsics), then optionally the guided second pass.
@@ -526,7 +538,17 @@ def run_matching(cfg: PipelineConfig, store: Optional[ArtifactStore] = None,
     revisit probe on a host thread, overlapped with the window matching,
     decides) adds bag-of-words partners past the window: on the resident
     plan they are more pool chunks, on the banked plan mini-banks of the
-    pairs' rows; they go through the same verification gate."""
+    pairs' rows; they go through the same verification gate.
+
+    schedule_slice=(k, n): match only every n-th scheduled window pair from
+    k, and every n-th loop-closure candidate from k (the shard of
+    ``parallel/dist.run_matching_distributed``). The candidates are found
+    over the whole schedule, so every shard decides alike and the shards'
+    rows hold each pair once (the JAX stage slices the window pairs alone
+    and matches every loop pair on every shard, stages.py:915-923).
+    ``verify_width`` maps this run's padded correspondence width P to the
+    one all shards verify at (their largest; every shard must call it), so
+    a pair's row does not depend on its shard."""
     store = store or ArtifactStore(cfg.store_path)
     dev = devlib.resolve(device)
     image_ids, kp, desc, cameras = _load_extraction(store)
@@ -541,7 +563,9 @@ def run_matching(cfg: PipelineConfig, store: Optional[ArtifactStore] = None,
         offsets = sorted({1 << i for i in range(max(m.overlap, 1))})
     else:
         offsets = list(range(1, m.overlap + 1))
-    sched = [(a, a + off) for off in offsets for a in range(n_img) if a + off < n_img]
+    sched_all = [(a, a + off) for off in offsets for a in range(n_img) if a + off < n_img]
+    k_sh, n_sh = schedule_slice or (0, 1)
+    sched = sched_all[k_sh::n_sh]
 
     # bank geometry: auto bank = ~256 MB of f32 descriptors, less the window
     W = max(offsets) if offsets else 1
@@ -606,7 +630,8 @@ def run_matching(cfg: PipelineConfig, store: Optional[ArtifactStore] = None,
             match_rows(list(range(s0, min(s0 + n_bank, n_img))), by_bank[blk])
 
     # ---- phase 1b: loop-closure candidates, through the same matcher ------
-    loop_pairs = sorted(loop.candidates(sched))
+    loop_all = sorted(loop.candidates(sched_all))
+    loop_pairs = loop_all[k_sh::n_sh]
     if resident:
         match_pool(loop_pairs)
         del pool, valid_pool
@@ -622,6 +647,10 @@ def run_matching(cfg: PipelineConfig, store: Optional[ArtifactStore] = None,
         if batch:
             match_rows(sorted(rows), batch)
     loop_meta = dict(loop.meta, n_candidates=len(loop_pairs))
+    if schedule_slice is not None:
+        # every shard probes and embeds every image, so all decide alike
+        loop_meta.update(candidates_total=len(loop_all),
+                         decided_on="every image, on every shard")
     if loop_pairs:
         # a digest of the candidate set, so that runs can be compared
         loop_meta["candidates_digest"] = hashlib.sha256(
@@ -631,8 +660,10 @@ def run_matching(cfg: PipelineConfig, store: Optional[ArtifactStore] = None,
 
     # ---- phase 2: two-view geometries in chunks; one table row per model -----
     pair_ids, tvg_rows, match_lists = [], [], []
+    P = _round_up(max(max((len(c[2]) for c in cand), default=0), 8), 256)
+    if verify_width is not None:
+        P = verify_width(P)
     if cand:
-        P = _round_up(max(max(len(c[2]) for c in cand), 8), 256)
         pair_ids, tvg_rows, match_lists = verify_candidates(
             m, image_ids, kp, cameras, cand, P, dev)
         if m.guided_matching and pair_ids:
@@ -648,6 +679,7 @@ def run_matching(cfg: PipelineConfig, store: Optional[ArtifactStore] = None,
              "execution": "resident" if resident else "banked",
              "bank_images": B, "num_banks": len(by_bank),
              "device": str(dev), "scheduled_pairs": len(sched), "k_max": K_max,
+             "schedule_slice": [k_sh, n_sh],
              "loop_closure": loop_meta,
              "pairs_per_s": len(pair_ids) / max(time.time() - t0, 1e-9)})
     log.info("matching: %d verified pairs of %d scheduled", len(pair_ids), len(sched))
