@@ -1,0 +1,6 @@
+"""SIFT extraction (``run_extraction``: decode, ``ops/sift.py``), ms per
+offered image, from its span summed over the untraced window's passes."""
+
+
+def read(t):
+    return t.stage_ms_per_image("run_extraction")

@@ -1,0 +1,6 @@
+"""Fusion (``run_fusion``), ms per offered image, from its span summed over
+the untraced window's passes."""
+
+
+def read(t):
+    return t.stage_ms_per_image("run_fusion")

@@ -1,0 +1,6 @@
+"""The merge and its refinement (``run_merge``), ms per offered image, from
+its span summed over the untraced window's passes."""
+
+
+def read(t):
+    return t.stage_ms_per_image("run_merge")
