@@ -890,15 +890,28 @@ def drive(cfg, store, dev, steps=STEPS, times=None, suffix=""):
     from scanner_colmap_tpu_torch import kernels
     from scanner_colmap_tpu_torch.pipeline import stages
 
+    from scanner_colmap_tpu_torch.utils import metrics
+
     outs, per_stage = {}, {}
     for name in steps:
         before = kernels.launch_counts()
+        # the merge's split: its spans, recorded with tracing on
+        was = metrics.set_tracing(name == "merge" or metrics.tracing())
+        metrics.GLOBAL_METRICS.reset()
         t = time.time()
-        outs[name] = getattr(stages, f"run_{name}")(cfg, store, device=dev)
+        try:
+            outs[name] = getattr(stages, f"run_{name}")(cfg, store, device=dev)
+        finally:
+            metrics.set_tracing(was)
         torch.cuda.synchronize()
         if times is not None:
             times[f"{name}{suffix}_s"] = time.time() - t
         per_stage[name] = {k: v - before[k] for k, v in kernels.launch_counts().items()}
+        if name == "merge":
+            spans = metrics.GLOBAL_METRICS.stage(metrics.RUN)
+            outs["merge_split_s"] = {k[len("span.merge."):-len(".s")]: round(v, 2)
+                                     for k, v in spans.items()
+                                     if k.startswith("span.merge.") and k.endswith(".s")}
     return outs, per_stage
 
 
@@ -934,7 +947,7 @@ def run_slice(dev, frames, gt, root, precision, record=None):
                "loop_closure": m_meta["loop_closure"],
                "launches": launches, "launches_per_stage": per_stage,
                "mapping_stats": store.read_manifest("mapping")["meta"]["device_stats"],
-               "merge_time_split_s": store.read_manifest("models")["meta"]["time_split_s"],
+               "merge_time_split_s": outs["merge_split_s"],
                "stage_seconds": {k: round(v, 4) for k, v in times.items()}}
     graph = store.read_manifest("mapping")["meta"]["graph"]
     summary["correspondence_graph"] = graph
@@ -1388,7 +1401,7 @@ def loop_phase(dev, root):
             "submodels": o["mapping"], "verified_pairs": len(prs),
             "far_pairs": len(far), "mirror_frac": mirror, "ate": ate,
             "loop_closure": st.read_manifest("matching")["meta"]["loop_closure"],
-            "merge_time_split_s": st.read_manifest("models")["meta"]["time_split_s"]}))
+            "merge_time_split_s": o["merge_split_s"]}))
     log(f"loop: launches per stage with closure {json.dumps(per_stage)}, stage seconds "
         f"{json.dumps({k: round(v, 4) for k, v in times.items()})}")
     model, ate, far = res["auto"]

@@ -18,7 +18,6 @@ unless asked not to, as the JAX function does.
 from __future__ import annotations
 
 import logging
-import time
 from concurrent.futures import ThreadPoolExecutor
 from typing import Dict, List, Optional, Sequence
 
@@ -32,6 +31,7 @@ from scanner_colmap_tpu_torch.engine.merge import merge_all
 from scanner_colmap_tpu_torch.models.reconstruction import Reconstruction
 from scanner_colmap_tpu_torch.utils import flops
 from scanner_colmap_tpu_torch.utils.config import MapperConfig, MergeConfig
+from scanner_colmap_tpu_torch.utils.metrics import span
 
 log = logging.getLogger(__name__)
 
@@ -91,8 +91,8 @@ def run_clustered_mapping(keypoints: Dict[int, np.ndarray], cameras: Dict,
 
     Returns (the merged model, or None with ``merge=False``; the clusters'
     reconstructions with >= 2 registered images), as the JAX function does.
-    The run's stats go to ``LAST_MAPPING_STATS``: the mode, timing and, in
-    device mode, whether the clusters ran as lanes (``batched``;
+    The run's stats go to ``LAST_MAPPING_STATS``: the mode and, in device
+    mode, whether the clusters ran as lanes (``batched``;
     ``chunks``, the lanes of each batched run), the device mapper's
     scheduled work (``scheduled_tflop``, ``utils/flops.device_mapper_flops``
     over every cluster it took), each cluster's registered count before any
@@ -115,7 +115,6 @@ def run_clustered_mapping(keypoints: Dict[int, np.ndarray], cameras: Dict,
     def host_map(ci) -> Reconstruction:
         return IncrementalMapper(*inputs(ci), cfg, seed=ci, device=device).reconstruct()
 
-    t0 = time.time()
     stats = {"mode": cfg.mode, "n_clusters": len(clusters)}
     if cfg.mode == "host":
         # clusters are independent; their host control loops overlap in
@@ -146,7 +145,8 @@ def run_clustered_mapping(keypoints: Dict[int, np.ndarray], cameras: Dict,
             if len(members) < 3 or rec.num_registered >= cfg.device_fallback_min_frac * len(members):
                 continue
             retried.append(ci)
-            host_rec = host_map(ci)
+            with span("mapping.host_retry"):
+                host_rec = host_map(ci)
             log.warning("cluster %d/%d: device mapper registered %d/%d, host retry %d%s",
                         ci + 1, len(clusters), rec.num_registered, len(members),
                         host_rec.num_registered,
@@ -158,7 +158,6 @@ def run_clustered_mapping(keypoints: Dict[int, np.ndarray], cameras: Dict,
     for ci, rec in enumerate(recs):
         log.info("cluster %d/%d (%s): %d/%d images, %d points", ci + 1, len(clusters),
                  cfg.mode, rec.num_registered, len(clusters[ci]), len(rec.points3D))
-    stats["solve_s"] = round(time.time() - t0, 3)
     LAST_MAPPING_STATS.clear()
     LAST_MAPPING_STATS.update(stats)
     submodels: List[Reconstruction] = [r for r in recs if r.num_registered >= 2]

@@ -35,6 +35,7 @@ from scanner_colmap_tpu_torch.models.reconstruction import (Camera, Image,
                                                             Reconstruction)
 from scanner_colmap_tpu_torch.ops import device_mapper
 from scanner_colmap_tpu_torch.utils.config import MapperConfig
+from scanner_colmap_tpu_torch.utils.metrics import count, span
 
 log = logging.getLogger(__name__)
 
@@ -422,7 +423,8 @@ def map_clusters_device_batch(cluster_args: Sequence[tuple],
     results: List[Optional[Reconstruction]] = [None] * len(cluster_args)
     groups: Dict[tuple, list] = {}
     for idx, (kp, cams, g, tv, seed) in enumerate(cluster_args):
-        prep = _prepare_cluster(kp, cams, g, tv, cfg)
+        with span("mapping.prepare"):
+            prep = _prepare_cluster(kp, cams, g, tv, cfg)
         if prep is None:
             results[idx] = _empty_rec(kp, cams, cfg)
             continue
@@ -436,14 +438,18 @@ def map_clusters_device_batch(cluster_args: Sequence[tuple],
             for p in chunk:
                 SHAPE_LOG.append((M, P, T, len(p["members"])))
             CHUNK_LOG.append(len(chunk))
-            t = cluster_inputs_from_numpy(
-                {k: np.stack([p[k] for p in chunk]) for k in CLUSTER_ARRAYS}, device)
-            out = device_mapper.map_cluster_batch(
-                [p["_seed"] for p in chunk], *(t[k] for k in CLUSTER_ARRAYS),
-                pnp_trials=cfg.device_pnp_trials, ba_iters=cfg.device_ba_iters_per_step,
-                final_iters=cfg.device_final_ba_iters).cpu().numpy()
-            for row, p in zip(out, chunk):
-                results[p["_idx"]] = _unpack(row, p, p["_cams"], p["_kp"], M, P, T, cfg)
+            with span("mapping.cluster"):
+                t = cluster_inputs_from_numpy(
+                    {k: np.stack([p[k] for p in chunk]) for k in CLUSTER_ARRAYS}, device)
+                out = device_mapper.map_cluster_batch(
+                    [p["_seed"] for p in chunk], *(t[k] for k in CLUSTER_ARRAYS),
+                    pnp_trials=cfg.device_pnp_trials, ba_iters=cfg.device_ba_iters_per_step,
+                    final_iters=cfg.device_final_ba_iters).cpu().numpy()
+                count("host_reads")
+                for row, p in zip(out, chunk):
+                    with span("mapping.unpack"):
+                        results[p["_idx"]] = _unpack(row, p, p["_cams"], p["_kp"],
+                                                     M, P, T, cfg)
     return results
 
 

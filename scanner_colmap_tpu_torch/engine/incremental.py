@@ -21,7 +21,6 @@ from __future__ import annotations
 
 import logging
 import math
-import time
 from typing import Dict, List, Optional, Tuple
 
 import numpy as np
@@ -36,6 +35,7 @@ from scanner_colmap_tpu_torch.models.reconstruction import (Camera, Image,
                                                             np_reproj_errors)
 from scanner_colmap_tpu_torch.ops import ba, pnp, triangulate
 from scanner_colmap_tpu_torch.utils.config import MapperConfig
+from scanner_colmap_tpu_torch.utils.metrics import span
 
 log = logging.getLogger(__name__)
 
@@ -688,28 +688,24 @@ class IncrementalMapper:
         if len(reg) < 2:
             return
         for it in range(self.cfg.ba_global_max_refinements):
-            t0 = time.time()
-            self.retriangulate()
-            t_retri = time.time() - t0
+            with span("refine.retriangulate"):
+                self.retriangulate()
             prev_obs = sum(p.track_length for p in self.rec.points3D.values())
             # stricter solve for tiny models
             iters = self.cfg.ba_global_max_num_iterations
             if len(reg) < 10:
                 iters *= 2
-            t0 = time.time()
-            info = self._run_ba(reg, iters)
-            t_ba = time.time() - t0
+            with span("refine.ba"):
+                info = self._run_ba(reg, iters)
             if info is None:
                 return
-            t0 = time.time()
-            self.complete_tracks()
-            self.merge_tracks()
-            self.filter_points()
-            self.filter_images()
-            log.info("global refine round %d: retriangulate %.1fs, BA %.1fs "
-                     "(cost %.0f -> %.0f), track ops %.1fs", it + 1, t_retri,
-                     t_ba, float(info["initial_cost"]), float(info["final_cost"]),
-                     time.time() - t0)
+            with span("refine.track_ops"):
+                self.complete_tracks()
+                self.merge_tracks()
+                self.filter_points()
+                self.filter_images()
+            log.info("global refine round %d: cost %.0f -> %.0f", it + 1,
+                     float(info["initial_cost"]), float(info["final_cost"]))
             reg = self.rec.registered_image_ids
             num_obs = sum(p.track_length for p in self.rec.points3D.values())
             change = abs(num_obs - prev_obs) / max(prev_obs, 1)

@@ -23,6 +23,10 @@
   the lane axis and the dense solve is a batched Cholesky over (C, 8M, 8M);
   damping, cost and convergence are per lane, and a converged lane's state
   stays as it was, so each lane follows its own single-problem solve
+- spans and counters (``utils/metrics``): ``ba.lm_trials`` counts the
+  LM trials (a batched trial once, whatever its lanes), ``host_reads``
+  the LM stop's read and the ``CamSegments`` plan's; the CG matvec's parts
+  are ``ba.cg.*`` spans
 - ``group``: with the points sharded over the ranks of a
   ``torch.distributed`` process group, the camera-side sums are summed over
   the ranks (``all_reduce``) where the JAX package ``psum``s over its mesh
@@ -46,6 +50,7 @@ from scanner_colmap_tpu_torch import device as devlib
 from scanner_colmap_tpu_torch.kernels.schur import schur_accumulate
 from scanner_colmap_tpu_torch.models import geometry as geom
 from scanner_colmap_tpu_torch.ops.linalg3 import inv33
+from scanner_colmap_tpu_torch.utils.metrics import count, span
 
 NUM_CAM_PARAMS = 8  # aa(3) + t(3) + log_f(1) + k1(1)
 
@@ -263,6 +268,8 @@ class CamSegments:
         first = torch.cumsum(pieces, 0) - pieces
         self.n_pieces, self.width = (torch.stack([pieces.sum(), pieces.max()]).tolist()
                                      if M else (0, 0))
+        if M:
+            count("host_reads")
         self.N, self.M = N, M
         self.g1 = torch.full((self.n_pieces * R,), N, dtype=torch.long, device=dev)
         self.g1[(first[cs] + rank // R) * R + rank % R] = order
@@ -510,13 +517,13 @@ def cg_plan(obs: BundleObs, cfg: BundleConfig, M: int) -> CGPlan:
 
 
 def _cg_gather(x: torch.Tensor, ci: torch.Tensor) -> torch.Tensor:
-    with torch.profiler.record_function("ba.cg.gather"):
+    with span("ba.cg.gather"):
         return x[ci]
 
 
 def _cg_products(Wc: torch.Tensor, Vinv: torch.Tensor, xc: torch.Tensor) -> torch.Tensor:
     """z = B Vinv B^T x per observation: (P, T, 8) from gathered x."""
-    with torch.profiler.record_function("ba.cg.einsum"):
+    with span("ba.cg.einsum"):
         u = torch.einsum("ptij,pti->pj", Wc, xc)
         return torch.einsum("ptij,pj->pti", Wc, torch.einsum("pij,pj->pi", Vinv, u))
 
@@ -606,11 +613,11 @@ def _lm_trial_cg(params, obs, cfg, lam, cg_iters: int, cg_tol: float = 1e-4,
     ci = obs.cam_idx.long()
 
     def matvec(xr):
-        with torch.profiler.record_function("ba.cg.matvec"):
+        with span("ba.cg.matvec"):
             x = expand(xr * rm) * pm
             ux = torch.einsum("mij,mj->mi", Ud, x)
             z = _cg_products(Wc, Vinv, _cg_gather(x, ci))
-            with torch.profiler.record_function("ba.cg.segsum"):
+            with span("ba.cg.segsum"):
                 sub = _segsum_cam(z, obs.cam_idx, M, plan.seg_all)
             sub, = _all_reduce_sum(group, sub)
             return reduce_((ux - sub) * pm) * rm
@@ -689,6 +696,8 @@ def bundle_adjust(params: BundleParams, obs: BundleObs, cfg: BundleConfig,
         rel = torch.abs(cost - cost2) / torch.clamp(cost, min=1e-12)
         cost = cost2
         n_applied += 1
+        count("ba.lm_trials")
+        count("host_reads")
         if bool((accept & (rel < function_tolerance)) | (lam > 1e5)):
             break
     _, mean_px, n_obs = robust_cost(p, obs, cfg, group)
@@ -732,6 +741,8 @@ def bundle_adjust_lanes(params: BundleParams, obs: BundleObs, cfg: BundleConfig,
         rel = torch.abs(cost - cost2) / torch.clamp(cost, min=1e-12)
         cost = cost2
         done = done | (accept & (rel < function_tolerance)) | (lam > 1e5)
+        count("ba.lm_trials")
+        count("host_reads")
         if bool(done.all()):
             break
     return p

@@ -31,6 +31,7 @@ import torch
 from scanner_colmap_tpu_torch.models import geometry as geom
 from scanner_colmap_tpu_torch.ops import ba, pnp
 from scanner_colmap_tpu_torch.ops.linalg3 import det33, solve33
+from scanner_colmap_tpu_torch.utils.metrics import count, span
 
 NUM_CAM_IN_TIED = 23
 
@@ -121,8 +122,10 @@ def map_cluster_batch(seeds, cam_in, order, forced, reg_init, obs_cam, obs_uv,
     S = order.shape[1]
     f32 = cam_in.dtype
     dev = cam_in.device
-    if C > 1 and not torch.equal(scal, scal[:1].expand_as(scal)):
-        raise ValueError("the lanes of a batch share the mapper's scalars (scal)")
+    if C > 1:
+        count("host_reads")
+        if not torch.equal(scal, scal[:1].expand_as(scal)):
+            raise ValueError("the lanes of a batch share the mapper's scalars (scal)")
 
     lanes = ba.Lanes.of(obs_cam, M)
     lane = torch.arange(C, device=dev)
@@ -166,8 +169,9 @@ def map_cluster_batch(seeds, cam_in, order, forced, reg_init, obs_cam, obs_uv,
             prior_log_f=cam_flat[:, 18], prior_k1=cam_flat[:, 19],
             prior_weight_f=cam_flat[:, 20], prior_weight_k=cam_flat[:, 21],
             cam_group=cam_group)
-        p2 = ba.bundle_adjust_lanes(params, obs, cfgb, lanes, active,
-                                    max_iterations=iters)
+        with span("mapping.ba"):
+            p2 = ba.bundle_adjust_lanes(params, obs, cfgb, lanes, active,
+                                        max_iterations=iters)
         cam2 = torch.cat([p2.qvec, p2.tvec, p2.log_f[:, None], p2.k1[:, None]],
                          dim=1).to(f32)
         vm2 = ok_mask(cam2, p2.xyz, registered, pt_valid)
@@ -176,8 +180,9 @@ def map_cluster_batch(seeds, cam_in, order, forced, reg_init, obs_cam, obs_uv,
     def grow_and_refine(cam, xyz, pt_valid, registered, iters, active):
         """Triangulate, then BA, on the lanes with ``active`` (C,) True;
         the other lanes keep their state."""
-        xyz_new, new_ok, _ = _triangulate_all(cam, registered, obs_g, obs_xn,
-                                              obs_present_b, tri_thr, min_tri_angle)
+        with span("mapping.triangulate"):
+            xyz_new, new_ok, _ = _triangulate_all(cam, registered, obs_g, obs_xn,
+                                                  obs_present_b, tri_thr, min_tri_angle)
         take = (~pt_valid) & new_ok
         xyz2 = torch.where(take[:, None], xyz_new, xyz)
         cam2, xyz2, pt_valid2 = run_ba(cam, xyz2, registered, pt_valid | take, iters,
@@ -192,6 +197,7 @@ def map_cluster_batch(seeds, cam_in, order, forced, reg_init, obs_cam, obs_uv,
     registered = reg_init.reshape(C * M) > 0.5
     order_h = order.tolist()
     forced_h = (forced > 0.5).tolist()
+    count("host_reads", 2)
 
     for s in range(S):
         imgs = [order_h[c][s] for c in range(C)]
@@ -208,32 +214,38 @@ def map_cluster_batch(seeds, cam_in, order, forced, reg_init, obs_cam, obs_uv,
         sup = (ok_mask(cam, xyz, registered, pt_valid).view(C, P, T) & sees).sum((1, 2))
         needs = on & (~registered[slot] | ((sup < 3) & ~frc))
         needs_h = needs.tolist()
+        count("host_reads")
         if not any(needs_h):
             continue
         ok = needs & frc
         pnp_lanes = [c for c in range(C) if needs_h[c] and not forced_h[c][s]]
         if pnp_lanes:
             # PnP on the lanes that need it (the others draw nothing)
-            sel = torch.as_tensor(pnp_lanes, device=dev)
-            has = (obs_present_b.view(C, P, T) & sees)[sel]
-            has_any = has.any(dim=2) & pt_valid.view(C, P)[sel]
-            tsel = torch.argmax(has.to(torch.int8), dim=2)
-            xn_i = torch.gather(obs_xn.view(C, P, T, 2)[sel], 2,
-                                tsel[..., None, None].expand(-1, -1, 1, 2))[:, :, 0]
-            n_corr = has_any.sum(1).to(f32)
-            min_inl = torch.minimum(abs_min_inl, torch.clamp(n_corr / 2.0, min=6.0))
-            res = pnp.pnp_ransac([step_generator(dev, seeds[c], s) for c in pnp_lanes],
-                                 xyz.view(C, P, 3)[sel], xn_i, has_any,
-                                 pnp_thr_n[sel, img_c[sel]], min_num_inliers=min_inl,
-                                 min_inlier_ratio=0.0, num_trials=pnp_trials)
-            ratio_ok = res.num_inliers.to(f32) >= abs_min_ratio * torch.clamp(n_corr, min=1.0)
-            pnp_ok = res.ok & ratio_ok
-            ok = ok.clone()
-            ok[sel] = pnp_ok
-            rows = slot[sel]
-            cam[rows, 0:4] = torch.where(pnp_ok[:, None], res.qvec.to(f32), cam[rows, 0:4])
-            cam[rows, 4:7] = torch.where(pnp_ok[:, None], res.tvec.to(f32), cam[rows, 4:7])
-            ok_h = ok.tolist()
+            with span("mapping.pnp"):
+                sel = torch.as_tensor(pnp_lanes, device=dev)
+                has = (obs_present_b.view(C, P, T) & sees)[sel]
+                has_any = has.any(dim=2) & pt_valid.view(C, P)[sel]
+                tsel = torch.argmax(has.to(torch.int8), dim=2)
+                xn_i = torch.gather(obs_xn.view(C, P, T, 2)[sel], 2,
+                                    tsel[..., None, None].expand(-1, -1, 1, 2))[:, :, 0]
+                n_corr = has_any.sum(1).to(f32)
+                min_inl = torch.minimum(abs_min_inl, torch.clamp(n_corr / 2.0, min=6.0))
+                res = pnp.pnp_ransac([step_generator(dev, seeds[c], s) for c in pnp_lanes],
+                                     xyz.view(C, P, 3)[sel], xn_i, has_any,
+                                     pnp_thr_n[sel, img_c[sel]], min_num_inliers=min_inl,
+                                     min_inlier_ratio=0.0, num_trials=pnp_trials)
+                ratio_ok = (res.num_inliers.to(f32)
+                            >= abs_min_ratio * torch.clamp(n_corr, min=1.0))
+                pnp_ok = res.ok & ratio_ok
+                ok = ok.clone()
+                ok[sel] = pnp_ok
+                rows = slot[sel]
+                cam[rows, 0:4] = torch.where(pnp_ok[:, None], res.qvec.to(f32),
+                                             cam[rows, 0:4])
+                cam[rows, 4:7] = torch.where(pnp_ok[:, None], res.tvec.to(f32),
+                                             cam[rows, 4:7])
+                ok_h = ok.tolist()
+                count("host_reads")
         else:
             ok_h = [bool(n and f) for n, f in zip(needs_h, (forced_h[c][s] for c in range(C)))]
         if any(ok_h):

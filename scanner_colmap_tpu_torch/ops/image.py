@@ -13,6 +13,8 @@ from typing import List, Optional, Tuple
 
 import numpy as np
 
+from scanner_colmap_tpu_torch.utils.metrics import span
+
 IMAGE_EXTS = {".jpg", ".jpeg", ".png", ".bmp", ".tif", ".tiff", ".ppm", ".pgm"}
 
 
@@ -118,10 +120,11 @@ def load_for_extraction(path: str, max_image_size: int,
     map keypoints back to original pixels), original (width, height), and
     the EXIF focal in ORIGINAL pixels (or None).
     """
-    rgb = decode_image(path)
-    oh, ow = rgb.shape[:2]
-    gray = to_grayscale(rgb)
-    gray, scale = resize_max(gray, max_image_size)
+    with span("image.decode"):
+        rgb = decode_image(path)
+        oh, ow = rgb.shape[:2]
+        gray = to_grayscale(rgb)
+        gray, scale = resize_max(gray, max_image_size)
     h, w = gray.shape
     out = pad_to_canvas(gray, canvas)
     # gray is [0, 1] luma: quantize to 8-bit levels for the transfer

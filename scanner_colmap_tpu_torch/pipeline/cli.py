@@ -18,8 +18,12 @@ on; ``--device cpu`` runs on the CPU. Without a card and without
 
 ``--profile_dir DIR`` records a ``torch.profiler`` trace: one per stage
 under ``DIR/<stage>/`` for ``all``, else one for the subcommand; a stage
-that raises still writes its trace. ``all`` writes each stage's time,
-launches and peak memory to ``<store>/metrics.json``.
+that raises still writes its trace. It also turns the program's spans and
+counters on (``utils/metrics``): each span is a range of the trace,
+named ``scanner.<span>``. ``all`` writes each stage's time, launches and
+peak memory to ``<store>/metrics.json``, and with ``--profile_dir`` the
+stage's spans (``span.<name>.n``, ``.s``, ``.self_s``) and counters
+(``count.<name>``) beside them.
 """
 
 from __future__ import annotations

@@ -69,7 +69,9 @@ from scanner_colmap_tpu_torch.ops import sift as sift_ops
 from scanner_colmap_tpu_torch.ops import two_view as tv_ops
 from scanner_colmap_tpu_torch.ops import undistort as ud_ops
 from scanner_colmap_tpu_torch.utils import colmap_io
+from scanner_colmap_tpu_torch.utils import metrics as metrics_lib
 from scanner_colmap_tpu_torch.utils.config import PipelineConfig
+from scanner_colmap_tpu_torch.utils.metrics import span
 from scanner_colmap_tpu_torch.utils.store import ArtifactStore
 
 log = logging.getLogger(__name__)
@@ -284,7 +286,6 @@ def run_extraction(cfg: PipelineConfig, store: Optional[ArtifactStore] = None,
         frame_ids = frame_ids[np.asarray(rows, np.int64)]
     decode = _frame_decoder(store, s.max_image_size, canvas)
     window = max(2, int(cfg.parallel.inflight_batches))
-    t0 = time.time()
     keypoints, descriptors, cam_rows, num_feats = [], [], [], []
     pending = collections.deque()   # dispatched: counts on their way to the host
     ready = collections.deque()     # counts read: [:, :kmax] rows on their way
@@ -343,8 +344,7 @@ def run_extraction(cfg: PipelineConfig, store: Optional[ArtifactStore] = None,
         "keypoints": keypoints,
         "descriptors": descriptors,
         "camera": np.stack(cam_rows) if cam_rows else np.zeros((0, 9), np.float64),
-    }, meta={"stage": "extraction", "config": vars(s), "device": str(dev),
-             "throughput_images_per_s": n / max(time.time() - t0, 1e-9)})
+    }, meta={"stage": "extraction", "config": vars(s), "device": str(dev)})
     log.info("extraction: %d images, mean %.0f feats", n,
              np.mean(num_feats) if num_feats else 0.0)
     return num_feats
@@ -573,7 +573,7 @@ class _LoopClosure:
         n_img, m, meta, probe = len(self.image_ids), self.m, self.meta, self.probe
         on, Hw = self.on, None
         if (self.on or self.auto) and n_img > 2:
-            t0 = time.time()
+            t0 = time.perf_counter()
             if self.thread is not None:
                 self.thread.join()
             if "error" in probe:
@@ -613,7 +613,7 @@ class _LoopClosure:
                     log.info("matching: loop-closure prepass: revisit fraction %.3f, "
                              "partner coherence %.3f -> %s", frac, coh,
                              "on" if on else "off")
-            meta["prepass_s"] = round(time.time() - t0, 3)
+            meta["prepass_s"] = round(time.perf_counter() - t0, 3)
         meta["enabled"] = bool(on and n_img > 2)
         if not meta["enabled"]:
             return set()
@@ -670,7 +670,6 @@ def run_matching(cfg: PipelineConfig, store: Optional[ArtifactStore] = None,
     dev = devlib.resolve(device)
     image_ids, kp, desc, cameras = _load_extraction(store)
     m = cfg.matching
-    t0 = time.time()
     n_img = len(image_ids)
     K_max = _round_up(max(max((len(d) for d in desc.values()), default=1), 1), 128)
     loop = _LoopClosure(m, image_ids, desc)
@@ -727,42 +726,44 @@ def run_matching(cfg: PipelineConfig, store: Optional[ArtifactStore] = None,
             *rows_tensor([(row_of[a], row_of[b]) for a, b in pairs], 0), **match_kw)
         drain(pairs, idx.cpu().numpy())
 
-    if resident:
-        raw, valid = _bank_rows(image_ids, desc, range(n_img), K_max, bank_dtype)
-        pool = matching_ops.normalize_pool(torch.as_tensor(raw, device=dev))
-        valid_pool = torch.as_tensor(valid, device=dev)
-        NPC = max(int(m.resident_pair_chunk), 1)
+    with span("matching.window"):
+        if resident:
+            raw, valid = _bank_rows(image_ids, desc, range(n_img), K_max, bank_dtype)
+            pool = matching_ops.normalize_pool(torch.as_tensor(raw, device=dev))
+            valid_pool = torch.as_tensor(valid, device=dev)
+            NPC = max(int(m.resident_pair_chunk), 1)
 
-        def match_pool(pairs):
-            for c0 in range(0, len(pairs), NPC):
-                chunk = pairs[c0:c0 + NPC]
-                idx = matching_ops.match_pairs_pool(
-                    pool, valid_pool, *rows_tensor(chunk, 0), **match_kw)
-                drain(chunk, idx.cpu().numpy())
+            def match_pool(pairs):
+                for c0 in range(0, len(pairs), NPC):
+                    chunk = pairs[c0:c0 + NPC]
+                    idx = matching_ops.match_pairs_pool(
+                        pool, valid_pool, *rows_tensor(chunk, 0), **match_kw)
+                    drain(chunk, idx.cpu().numpy())
 
-        match_pool(sched)
-    else:
-        for blk in sorted(by_bank):
-            s0 = blk * B
-            match_rows(list(range(s0, min(s0 + n_bank, n_img))), by_bank[blk])
+            match_pool(sched)
+        else:
+            for blk in sorted(by_bank):
+                s0 = blk * B
+                match_rows(list(range(s0, min(s0 + n_bank, n_img))), by_bank[blk])
 
     # ---- phase 1b: loop-closure candidates, through the same matcher ------
-    loop_all = sorted(loop.candidates(sched_all))
-    loop_pairs = loop_all[k_sh::n_sh]
-    if resident:
-        match_pool(loop_pairs)
-        del pool, valid_pool
-    else:
-        # mini-banks of the pairs' rows, at most n_bank rows each
-        batch, rows = [], set()
-        for p in loop_pairs:
-            if len(rows | set(p)) > n_bank:
+    with span("matching.loop_closure"):
+        loop_all = sorted(loop.candidates(sched_all))
+        loop_pairs = loop_all[k_sh::n_sh]
+        if resident:
+            match_pool(loop_pairs)
+            del pool, valid_pool
+        else:
+            # mini-banks of the pairs' rows, at most n_bank rows each
+            batch, rows = [], set()
+            for p in loop_pairs:
+                if len(rows | set(p)) > n_bank:
+                    match_rows(sorted(rows), batch)
+                    batch, rows = [], set()
+                batch.append(p)
+                rows |= set(p)
+            if batch:
                 match_rows(sorted(rows), batch)
-                batch, rows = [], set()
-            batch.append(p)
-            rows |= set(p)
-        if batch:
-            match_rows(sorted(rows), batch)
     loop_meta = dict(loop.meta, n_candidates=len(loop_pairs))
     if schedule_slice is not None:
         # every shard probes and embeds every image, so all decide alike
@@ -784,9 +785,10 @@ def run_matching(cfg: PipelineConfig, store: Optional[ArtifactStore] = None,
         pair_ids, tvg_rows, match_lists = verify_candidates(
             m, image_ids, kp, cameras, cand, P, dev)
         if m.guided_matching and pair_ids:
-            match_lists = _guided_rematch(m, image_ids, kp, desc, pair_ids,
-                                          tvg_rows, match_lists, B, n_bank,
-                                          K_max, dev)
+            with span("matching.guided"):
+                match_lists = _guided_rematch(m, image_ids, kp, desc, pair_ids,
+                                              tvg_rows, match_lists, B, n_bank,
+                                              K_max, dev)
 
     store.write_table(out_table, {
         "pair_image_ids": np.asarray(pair_ids, np.int64).reshape(-1, 2),
@@ -797,8 +799,7 @@ def run_matching(cfg: PipelineConfig, store: Optional[ArtifactStore] = None,
              "bank_images": B, "num_banks": len(by_bank),
              "device": str(dev), "scheduled_pairs": len(sched), "k_max": K_max,
              "schedule_slice": [k_sh, n_sh],
-             "loop_closure": loop_meta,
-             "pairs_per_s": len(pair_ids) / max(time.time() - t0, 1e-9)})
+             "loop_closure": loop_meta})
     log.info("matching: %d verified pairs of %d scheduled", len(pair_ids), len(sched))
     return len(pair_ids)
 
@@ -908,24 +909,25 @@ def verify_candidates(m, image_ids, kp, cameras, cand, P: int, dev, chunk=None):
     S = verify_sub_batch(P, dev)
     pair_ids, tvg_rows, match_lists = [], [], []
     for c0 in range(0, len(cand), VC):
-        pairs = cand[c0:c0 + VC]
-        packed = torch.cat([_verify_call(m, image_ids, kp, cameras, pairs[s0:s0 + S],
-                                         S, P, n_models, dev)
-                            for s0 in range(0, len(pairs), S)]).cpu().numpy()
-        for n, (a, b, sel, idx_row) in enumerate(pairs):
-            found = [r for r in range(n_models)
-                     if int(packed[n, r, 0]) not in (tv_ops.DEGENERATE, tv_ops.UNDEFINED)
-                     and int(packed[n, r, 1]) >= m.min_num_inliers]
-            k_n = min(len(sel), P)
-            for r in found:
-                row = packed[n, r, :37].astype(np.float64)
-                if len(found) > 1:
-                    row[0] = tv_ops.MULTIPLE
-                inl = packed[n, r, 37:37 + k_n] > 0.5
-                pair_ids.append((image_ids[a], image_ids[b]))
-                tvg_rows.append(row)
-                match_lists.append(np.stack(
-                    [sel[:k_n][inl], idx_row[sel[:k_n][inl]]], axis=1).astype(np.int32))
+        with span("matching.verify"):
+            pairs = cand[c0:c0 + VC]
+            packed = torch.cat([_verify_call(m, image_ids, kp, cameras, pairs[s0:s0 + S],
+                                             S, P, n_models, dev)
+                                for s0 in range(0, len(pairs), S)]).cpu().numpy()
+            for n, (a, b, sel, idx_row) in enumerate(pairs):
+                found = [r for r in range(n_models)
+                         if int(packed[n, r, 0]) not in (tv_ops.DEGENERATE, tv_ops.UNDEFINED)
+                         and int(packed[n, r, 1]) >= m.min_num_inliers]
+                k_n = min(len(sel), P)
+                for r in found:
+                    row = packed[n, r, :37].astype(np.float64)
+                    if len(found) > 1:
+                        row[0] = tv_ops.MULTIPLE
+                    inl = packed[n, r, 37:37 + k_n] > 0.5
+                    pair_ids.append((image_ids[a], image_ids[b]))
+                    tvg_rows.append(row)
+                    match_lists.append(np.stack(
+                        [sel[:k_n][inl], idx_row[sel[:k_n][inl]]], axis=1).astype(np.int32))
     return pair_ids, tvg_rows, match_lists
 
 
@@ -1033,7 +1035,6 @@ def run_mapping(cfg: PipelineConfig, store: Optional[ArtifactStore] = None,
     dev = devlib.resolve(device)
     image_ids, kp, desc, cameras = _load_extraction(store)
     graph, two_view = _build_graph(store, kp)
-    t0 = time.time()
     _, submodels = cluster_lib.run_clustered_mapping(kp, cameras, graph, two_view,
                                                      cfg.mapper, merge=False, device=dev)
     stats = dict(cluster_lib.LAST_MAPPING_STATS)
@@ -1045,7 +1046,6 @@ def run_mapping(cfg: PipelineConfig, store: Optional[ArtifactStore] = None,
         "images": [b[1] for b in blobs],
         "points3d": [b[2] for b in blobs],
     }, meta={"stage": "mapping", "config": vars(cfg.mapper), "device": str(dev),
-             "images_registered_per_s": n_reg / max(time.time() - t0, 1e-9),
              "num_submodels": len(submodels), "device_stats": stats,
              "graph": graph.kind})
     log.info("mapping: %d submodels, %d registrations", len(submodels), n_reg)
@@ -1065,38 +1065,34 @@ def run_merge(cfg: PipelineConfig, store: Optional[ArtifactStore] = None,
     passes through unrefined, as in the reference."""
     store = store or ArtifactStore(cfg.store_path)
     dev = devlib.resolve(device)
-    t_split = {}
-    t0 = time.time()
-    tab = store.read_table("mapping")
-    submodels = [colmap_io.model_from_bytes(c, i, p)
-                 for c, i, p in zip(tab["cameras"], tab["images"], tab["points3d"])]
-    t_split["load"] = round(time.time() - t0, 2)
-    t0 = time.time()
-    model = merge_all(submodels, cfg.merge)
-    t_split["fold"] = round(time.time() - t0, 2)
+    with span("merge.load"):
+        tab = store.read_table("mapping")
+        submodels = [colmap_io.model_from_bytes(c, i, p)
+                     for c, i, p in zip(tab["cameras"], tab["images"], tab["points3d"])]
+    with span("merge.fold"):
+        model = merge_all(submodels, cfg.merge)
     if cfg.merge.final_ba and len(submodels) > 1:
         if cfg.merge.iterative_refine and store.has_table("matching"):
-            t0 = time.time()
-            _, kp_r, _, cameras_r = _load_extraction(store)
-            graph_r, two_view_r = _build_graph(store, kp_r)
-            t_split["graph"] = round(time.time() - t0, 2)
-            t0 = time.time()
+            with span("merge.graph"):
+                _, kp_r, _, cameras_r = _load_extraction(store)
+                graph_r, two_view_r = _build_graph(store, kp_r)
             m_cfg = cfg.matching
             win_max = (1 << max(m_cfg.overlap - 1, 0) if m_cfg.quadratic_overlap
                        else m_cfg.overlap)
-            model = iterative_global_refinement(
-                model, kp_r, cameras_r, graph_r, two_view_r, cfg.mapper,
-                window=win_max, loop_gate_factor=cfg.merge.loop_refine_gate_factor,
-                loop_separation=m_cfg.loop_min_separation or 2 * m_cfg.overlap,
-                device=dev)
-            t_split["refine"] = round(time.time() - t0, 2)
+            with span("merge.refine"):
+                model = iterative_global_refinement(
+                    model, kp_r, cameras_r, graph_r, two_view_r, cfg.mapper,
+                    window=win_max, loop_gate_factor=cfg.merge.loop_refine_gate_factor,
+                    loop_separation=m_cfg.loop_min_separation or 2 * m_cfg.overlap,
+                    device=dev)
         else:
-            info = global_refine(
-                model, max_iterations=cfg.merge.final_ba_iterations,
-                filter_max_reproj_error=cfg.mapper.filter_max_reproj_error,
-                intr_prior_weight_f=cfg.mapper.intr_prior_weight_f,
-                intr_prior_weight_k=cfg.mapper.intr_prior_weight_k,
-                dense_max_images=cfg.merge.final_ba_max_images, device=dev)
+            with span("merge.refine"):
+                info = global_refine(
+                    model, max_iterations=cfg.merge.final_ba_iterations,
+                    filter_max_reproj_error=cfg.mapper.filter_max_reproj_error,
+                    intr_prior_weight_f=cfg.mapper.intr_prior_weight_f,
+                    intr_prior_weight_k=cfg.mapper.intr_prior_weight_k,
+                    dense_max_images=cfg.merge.final_ba_max_images, device=dev)
             if info:
                 log.info("merge: final BA cost %.1f -> %.1f",
                          info["initial_cost"], info["final_cost"])
@@ -1108,7 +1104,7 @@ def run_merge(cfg: PipelineConfig, store: Optional[ArtifactStore] = None,
     }, meta={"stage": "merge", "num_registered": model.num_registered,
              "num_points": len(model.points3D),
              "mean_reproj_error": model.mean_reprojection_error(),
-             "device": str(dev), "time_split_s": t_split})
+             "device": str(dev)})
     if export_path:
         colmap_io.write_model(model, export_path)
     log.info("merge: %d images, %d points", model.num_registered, len(model.points3D))
@@ -1369,8 +1365,9 @@ def _frame_loader(store: ArtifactStore):
             return image_ops.load_for_extraction(frames["path"][n].decode(),
                                                  max_image_size, canvas)
         h, w = int(frames["height"][n]), int(frames["width"][n])
-        gray = np.asarray(frames["pixels"][n]).reshape(h, w).astype(np.float32) / 255.0
-        gray, scale = image_ops.resize_max(gray, max_image_size)
+        with span("image.decode"):
+            gray = np.asarray(frames["pixels"][n]).reshape(h, w).astype(np.float32) / 255.0
+            gray, scale = image_ops.resize_max(gray, max_image_size)
         out = image_ops.pad_to_canvas(gray, canvas)
         return {"image": np.clip(np.round(out * 255.0), 0, 255).astype(np.uint8),
                 "valid_hw": np.array(gray.shape[:2], np.int32), "scale": scale}
@@ -1470,11 +1467,13 @@ def run_prepare_patch_match(cfg: PipelineConfig, store: Optional[ArtifactStore] 
         im = model.images[iid]
         cam = model.cameras[im.camera_id]
         depths = []
-        for pid in im.point3D_ids:
-            if pid >= 0 and int(pid) in model.points3D:
-                x_cam = geom.np_pose_transform(im.qvec, im.tvec, model.points3D[int(pid)].xyz)
-                if x_cam[2] > 0:
-                    depths.append(x_cam[2])
+        with span("prepare_patch_match.depth_ranges"):
+            for pid in im.point3D_ids:
+                if pid >= 0 and int(pid) in model.points3D:
+                    x_cam = geom.np_pose_transform(im.qvec, im.tvec,
+                                                   model.points3D[int(pid)].xyz)
+                    if x_cam[2] > 0:
+                        depths.append(x_cam[2])
         if len(depths) < 5:
             continue
         d = np.asarray(depths)
@@ -1554,7 +1553,6 @@ def run_patch_match(cfg: PipelineConfig, store: Optional[ArtifactStore] = None,
     Tm = np.asarray(tab["T"], np.float32).reshape(n, 3)
     Km = np.asarray(tab["K"], np.float32).reshape(n, 3, 3)
     S = pm.overlap
-    t0 = time.time()
 
     if ref_slice is not None:
         k_blk, nproc = ref_slice
@@ -1634,11 +1632,12 @@ def run_patch_match(cfg: PipelineConfig, store: Optional[ArtifactStore] = None,
                               init_depth=banks[0][ref], init_normal=banks[1][ref])
             elif init is not None and ref in init[0]:
                 kwargs = dict(init_depth=init[0][ref], init_normal=init[1][ref])
-            out[ref] = pm_ops.patch_match_tiled(
-                build_problem(ref, ds), tile_rows=tile, halo_rows=pm.tile_halo,
-                seed=(pass_idx, ref), num_iterations=iters or pm.num_iterations,
-                window_radius=pm.window_radius, sigma_spatial=pm.sigma_spatial,
-                sigma_color=pm.sigma_color, sampling=pm.sampling, **kwargs)
+            with span("patch_match.map"):
+                out[ref] = pm_ops.patch_match_tiled(
+                    build_problem(ref, ds), tile_rows=tile, halo_rows=pm.tile_halo,
+                    seed=(pass_idx, ref), num_iterations=iters or pm.num_iterations,
+                    window_radius=pm.window_radius, sigma_spatial=pm.sigma_spatial,
+                    sigma_color=pm.sigma_color, sampling=pm.sampling, **kwargs)
         return ({r: o[0] for r, o in out.items()}, {r: o[1] for r, o in out.items()},
                 {r: o[2] for r, o in out.items()})
 
@@ -1669,13 +1668,11 @@ def run_patch_match(cfg: PipelineConfig, store: Optional[ArtifactStore] = None,
         normal_maps.append(n_bank[ref][:h, :w].cpu().numpy())
         cost_maps.append(c_bank[ref][:h, :w].cpu().numpy())
         out_ids.append(int(tab["image_id"][ref]))
-    rate = len(out_ids) / max(time.time() - t0, 1e-9)
     store.write_table(out_table, {
         "image_id": np.asarray(out_ids, np.int64), "depth_map": depth_maps,
         "normal_map": normal_maps, "cost_map": cost_maps,
-    }, meta={"stage": "patch_match", "config": vars(pm), "device": str(dev),
-             "depth_maps_per_s": rate})
-    log.info("patch_match: %d depth maps, %.2f maps/s", len(out_ids), rate)
+    }, meta={"stage": "patch_match", "config": vars(pm), "device": str(dev)})
+    log.info("patch_match: %d depth maps", len(out_ids))
     return len(out_ids)
 
 
@@ -1734,7 +1731,6 @@ def run_fusion(cfg: PipelineConfig, store: Optional[ArtifactStore] = None,
             "normal": np.zeros((0, 3), np.float32),
             "num_consistent": np.zeros(0, np.int32)}, meta={"stage": "fusion"})
         return 0
-    t0 = time.time()
     win = 2 * cfg.patch_match.overlap if fu.window == 0 else (None if fu.window < 0
                                                               else fu.window)
     out = fusion_ops.fuse_depth_maps(
@@ -1742,17 +1738,16 @@ def run_fusion(cfg: PipelineConfig, store: Optional[ArtifactStore] = None,
         max_normal_error_rad=math.radians(fu.max_normal_error_deg),
         min_num_consistent=fu.min_num_consistent, window=win)
     pts = fusion_ops.compact_fused_points_device(out)
-    rate = len(pts["xyz"]) / max(time.time() - t0, 1e-9)
     store.write_table("fused", {
         "xyz": pts["xyz"].astype(np.float32),
         "rgb": np.clip(pts["rgb"] * 255, 0, 255).astype(np.uint8),
         "normal": pts["normal"].astype(np.float32),
         "num_consistent": pts["num_consistent"].astype(np.int32),
         "visibility": pts["visibility"],
-    }, meta={"stage": "fusion", "device": str(dev), "fused_points_per_s": rate})
+    }, meta={"stage": "fusion", "device": str(dev)})
     if ply_path:
         fusion_ops.write_ply(ply_path, pts["xyz"], pts["rgb"], pts["normal"])
-    log.info("fusion: %d points, %.0f pts/s", len(pts["xyz"]), rate)
+    log.info("fusion: %d points", len(pts["xyz"]))
     return len(pts["xyz"])
 
 
@@ -1782,21 +1777,18 @@ def run_meshing(cfg: PipelineConfig, store: Optional[ArtifactStore] = None,
     origin, voxel, dims = meshing_ops.grid_from_bounds(
         np.percentile(xyz, p, axis=0), np.percentile(xyz, 100 - p, axis=0),
         resolution=me.resolution, margin_voxels=me.margin_voxels)
-    t0 = time.time()
-    grid = meshing_ops.fuse_tsdf(inp, origin, voxel, dims, trunc_voxels=me.trunc_voxels)
-    t_tsdf = time.time() - t0
-    t0 = time.time()
-    verts, faces, rgb = meshing_ops.marching_tetrahedra(grid, min_weight=me.min_weight)
-    t_mc = time.time() - t0
+    with span("meshing.tsdf"):
+        grid = meshing_ops.fuse_tsdf(inp, origin, voxel, dims, trunc_voxels=me.trunc_voxels)
+    with span("meshing.extract"):
+        verts, faces, rgb = meshing_ops.marching_tetrahedra(grid, min_weight=me.min_weight)
     store.write_table("mesh", {
         "verts": [verts.astype(np.float32)], "faces": [faces.astype(np.int32)],
         "rgb": [np.clip(rgb * 255, 0, 255).astype(np.uint8)],
     }, meta={"stage": "meshing", "dims": list(dims), "voxel": float(voxel),
-             "tsdf_s": round(t_tsdf, 3), "extract_s": round(t_mc, 3), "device": str(dev)})
+             "device": str(dev)})
     if mesh_path and len(faces):
         meshing_ops.write_ply_mesh(mesh_path, verts, faces, rgb)
-    log.info("meshing: %d verts / %d faces on %s grid (tsdf %.2fs, extract %.2fs)",
-             len(verts), len(faces), dims, t_tsdf, t_mc)
+    log.info("meshing: %d verts / %d faces on %s grid", len(verts), len(faces), dims)
     return len(faces)
 
 
@@ -1806,14 +1798,15 @@ def run_meshing(cfg: PipelineConfig, store: Optional[ArtifactStore] = None,
 
 
 def _run_stage(name: str, fn, store: ArtifactStore, dev, profile_dir, metrics):
-    """Run one stage of ``run_all`` and record in ``metrics`` its wall time
-    (after the card's queue drains), the kernels' launches, on the card its
-    peak allocated memory and, with ``profile_dir``, the device's kernels
-    and busy time from a ``torch.profiler`` trace of the stage
-    (``<profile_dir>/<name>/trace.json``). The metrics are written to
+    """Run one stage of ``run_all`` with ``name`` open in ``metrics`` and
+    record there its wall time (after the card's queue drains), the
+    kernels' launches, on the card its peak allocated memory (and the
+    run's, ``run.peak_allocated_mib``) and, with ``profile_dir``, the
+    device's kernels and busy time from a ``torch.profiler`` trace of the
+    stage (``<profile_dir>/<name>/trace.json``). The metrics, the spans and
+    counters of the stage among them, are written to
     ``<store>/metrics.json`` after every stage."""
     from scanner_colmap_tpu_torch import kernels
-    from scanner_colmap_tpu_torch.utils.metrics import device_trace
 
     cuda = dev.type == "cuda"
     if cuda:
@@ -1821,16 +1814,23 @@ def _run_stage(name: str, fn, store: ArtifactStore, dev, profile_dir, metrics):
         torch.cuda.reset_peak_memory_stats(dev)
     before = kernels.launch_counts()
     trace = {}
-    t0 = time.time()
-    with device_trace(profile_dir and os.path.join(profile_dir, name), trace):
-        out = fn()
-        if cuda:
-            torch.cuda.synchronize(dev)
-    metrics.set(name, "wall_s", time.time() - t0)
+    metrics.set_stage(name)
+    t0 = time.perf_counter()
+    try:
+        with metrics_lib.device_trace(profile_dir and os.path.join(profile_dir, name), trace):
+            out = fn()
+            if cuda:
+                torch.cuda.synchronize(dev)
+    finally:
+        metrics.set_stage(None)
+    metrics.set(name, "wall_s", time.perf_counter() - t0)
     for k, v in kernels.launch_counts().items():
         metrics.set(name, f"launches.{k}", v - before[k])
     if cuda:
-        metrics.set(name, "peak_allocated_mib", torch.cuda.max_memory_allocated(dev) / 2**20)
+        peak = torch.cuda.max_memory_allocated(dev) / 2**20
+        metrics.set(name, "peak_allocated_mib", peak)
+        run_peak = metrics.stage(metrics_lib.RUN).get("peak_allocated_mib", 0.0)
+        metrics.set(metrics_lib.RUN, "peak_allocated_mib", max(peak, run_peak))
     for k, v in trace.items():
         metrics.set(name, k, v)
     metrics.dump(os.path.join(store.root, "metrics.json"))
@@ -1847,7 +1847,12 @@ def run_all(cfg: PipelineConfig, export_path: Optional[str] = None,
     PLY) and with ``mesh`` meshing (``mesh_path``). With ``resume``, a stage
     whose output table exists is skipped, and the model is read back from
     the ``models`` table when the merge is. Each stage's time, launches and
-    peak memory go to ``<store>/metrics.json`` (``_run_stage``)."""
+    peak memory go to ``<store>/metrics.json`` (``_run_stage``), and so do
+    the program's spans and counters (``utils/metrics.span``, ``count``)
+    while tracing is on: with ``utils.metrics.set_tracing(True)``, with
+    ``profile_dir``, or for the whole run when it starts under a running
+    ``torch.profiler``. ``GLOBAL_METRICS`` holds the run's metrics until
+    the next run."""
     store = ArtifactStore(cfg.store_path)
     dev = devlib.resolve(device)
     steps = [("frames", "prepare_images", lambda: prepare_images(cfg, store)),
@@ -1865,14 +1870,19 @@ def run_all(cfg: PipelineConfig, export_path: Optional[str] = None,
         if mesh:
             steps.append(("mesh", "meshing", lambda: run_meshing(cfg, store, mesh_path=mesh_path,
                                                                  device=dev)))
-    from scanner_colmap_tpu_torch.utils.metrics import Metrics
-
-    model, metrics = None, Metrics()
-    for table, name, fn in steps:
-        if resume and store.has_table(table):
-            log.info("run_all: %s table exists, %s skipped", table, name)
-            continue
-        out = _run_stage(name, fn, store, dev, profile_dir, metrics)
-        if table == "models":
-            model = out
-    return model if model is not None else load_model(store)
+    metrics = metrics_lib.GLOBAL_METRICS
+    metrics.reset()
+    # a run that a profiler watches records the program's spans beside it
+    was = metrics_lib.set_tracing(metrics_lib.tracing() or metrics_lib.profiler_running())
+    try:
+        model = None
+        for table, name, fn in steps:
+            if resume and store.has_table(table):
+                log.info("run_all: %s table exists, %s skipped", table, name)
+                continue
+            out = _run_stage(name, fn, store, dev, profile_dir, metrics)
+            if table == "models":
+                model = out
+        return model if model is not None else load_model(store)
+    finally:
+        metrics_lib.set_tracing(was)

@@ -32,6 +32,8 @@ from typing import Dict, List, Optional, Union
 
 import numpy as np
 
+from scanner_colmap_tpu_torch.utils.metrics import count, span
+
 Column = Union[np.ndarray, List[np.ndarray], List[bytes]]
 
 # columns at or above this many bytes are read as zero-copy memmaps; small
@@ -40,13 +42,16 @@ MMAP_READ_THRESHOLD = 1 << 20
 
 
 def _write_bytes(path: str, payload: bytes):
-    """Durable write of one column payload: tmp, fsync, rename."""
+    """Durable write of one file (a column payload, a manifest): tmp,
+    fsync, rename."""
     tmp = f"{path}.tmp-{os.getpid()}"
     with open(tmp, "wb") as f:
         f.write(payload)
         f.flush()
         os.fsync(f.fileno())
     os.replace(tmp, path)
+    count("store.bytes_written", len(payload))
+    count("store.fsyncs")
 
 
 def _save_npy(path: str, arr: np.ndarray):
@@ -91,6 +96,10 @@ class ArtifactStore:
     # ------------------------------------------------------------------
     def write_table(self, name: str, columns: Dict[str, Column],
                     meta: Optional[dict] = None, overwrite: bool = True):
+        with span("store.write"):
+            self._write_table(name, columns, meta, overwrite)
+
+    def _write_table(self, name, columns, meta, overwrite):
         final = self._table_dir(name)
         if self.has_table(name) and not overwrite:
             raise FileExistsError(f"table {name} exists")
@@ -118,10 +127,8 @@ class ArtifactStore:
                     f"column {col} has {info['num_rows']} rows, expected {num_rows}")
         manifest["num_rows"] = num_rows
 
-        with open(os.path.join(tmp, "manifest.json"), "w") as f:
-            json.dump(manifest, f, indent=2)
-            f.flush()
-            os.fsync(f.fileno())
+        _write_bytes(os.path.join(tmp, "manifest.json"),
+                     json.dumps(manifest, indent=2).encode())
         if os.path.isdir(final):
             shutil.rmtree(final)
         os.rename(tmp, final)
@@ -166,18 +173,22 @@ class ArtifactStore:
 
     def read_table(self, name: str, columns: Optional[List[str]] = None
                    ) -> Dict[str, Column]:
-        manifest = self.read_manifest(name)
-        tdir = self._table_dir(name)
-        out: Dict[str, Column] = {}
-        for col, info in manifest["columns"].items():
-            if columns is not None and col not in columns:
-                continue
-            out[col] = self._read_column(tdir, col, info)
-        return out
+        """The table's columns (all, or those named); columns of 1 MiB or
+        more come back as memmaps, read from disk as they are used."""
+        with span("store.read"):
+            manifest = self.read_manifest(name)
+            tdir = self._table_dir(name)
+            out: Dict[str, Column] = {}
+            for col, info in manifest["columns"].items():
+                if columns is not None and col not in columns:
+                    continue
+                out[col] = self._read_column(tdir, col, info)
+            return out
 
     def read_column(self, name: str, col: str) -> Column:
-        manifest = self.read_manifest(name)
-        return self._read_column(self._table_dir(name), col, manifest["columns"][col])
+        with span("store.read"):
+            manifest = self.read_manifest(name)
+            return self._read_column(self._table_dir(name), col, manifest["columns"][col])
 
     def _read_column(self, tdir: str, col: str, info: dict) -> Column:
         kind = info["kind"]

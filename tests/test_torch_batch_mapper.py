@@ -34,6 +34,7 @@ from scanner_colmap_tpu_torch.models import geometry as tgeom
 from scanner_colmap_tpu_torch.ops import ba as tba
 from scanner_colmap_tpu_torch.ops import pnp as tpnp
 from scanner_colmap_tpu_torch.utils import flops as tflops
+from scanner_colmap_tpu_torch.utils import metrics as tmetrics
 from scanner_colmap_tpu_torch.utils.config import MapperConfig
 
 CPU = torch.device("cpu")
@@ -207,6 +208,35 @@ def test_clustered_mapping_batched_stats(monkeypatch):
     want = 3 * tflops.device_mapper_flops(8, 512, 6, 6, cfg.device_ba_iters_per_step,
                                           cfg.device_final_ba_iters, cfg.device_pnp_trials)
     assert stats["scheduled_tflop"] == pytest.approx(want / 1e12)
+
+
+@pytest.mark.parametrize("lanes", [1, 2])
+def test_host_reads_of_a_device_map_are_its_sites(monkeypatch, lanes):
+    """``count.host_reads`` of a device map (one cluster, or two lanes of
+    one batched run) is its sites' hand count: the schedule's two reads
+    (with lanes, and the shared scalars' check), one a scheduled step, one
+    a PnP, one a LM trial (its stop; the CPU builds no ``CamSegments``
+    plan) and the result's download."""
+    kp, cams, graph, tv, _ = _port_scene(monkeypatch, num_images=6, num_points=200)
+    args = _args(kp, cams, graph, tv, [list(range(6))] * lanes)
+    cfg = _cfg()
+    orders = np.stack([tdc._prepare_cluster(*a[:4], cfg)["order"] for a in args])
+    steps = int((orders.max(0) >= 0).sum())
+    was = tmetrics.set_tracing(True)
+    tmetrics.GLOBAL_METRICS.reset()
+    try:
+        recs = tdc.map_clusters_device_batch(args, cfg, device=CPU, batch_size=lanes)
+        d = tmetrics.GLOBAL_METRICS.stage(tmetrics.RUN)
+    finally:
+        tmetrics.set_tracing(was)
+        tmetrics.GLOBAL_METRICS.reset()
+    assert all(r.num_registered >= 5 for r in recs)
+    assert d["span.mapping.cluster.n"] == 1
+    assert d["span.mapping.prepare.n"] == d["span.mapping.unpack.n"] == lanes
+    assert d["span.mapping.ba.n"] == d["span.mapping.triangulate.n"] >= 2
+    pnp_n, trials = d["span.mapping.pnp.n"], d["count.ba.lm_trials"]
+    assert pnp_n >= 4 and trials >= d["span.mapping.ba.n"]
+    assert d["count.host_reads"] == 2 + (lanes > 1) + steps + pnp_n + trials + 1
 
 
 def test_clustered_mapping_merges_like_jax(monkeypatch):

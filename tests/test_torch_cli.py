@@ -252,3 +252,91 @@ def test_empty_extraction_table_has_width_9(tmp_path):
     assert tstages.run_extraction(cfg, store, device=CPU) == []
     assert np.asarray(store.read_table("extraction")["camera"]).shape == (0, 9)
     shutil.rmtree(str(tmp_path / "extraction"))
+
+
+TRACED_SPANS = (
+    "mapping.cluster", "mapping.prepare", "mapping.pnp", "mapping.triangulate",
+    "mapping.ba", "mapping.unpack", "mapping.host_retry",
+    "merge.load", "merge.fold", "merge.graph", "merge.refine",
+    "refine.retriangulate", "refine.ba", "refine.track_ops",
+    "prepare_patch_match.depth_ranges", "image.decode", "store.read", "store.write",
+    "matching.window", "matching.loop_closure", "matching.verify", "matching.guided",
+    "patch_match.map", "meshing.tsdf", "meshing.extract")
+TRACED_COUNTS = ("ba.lm_trials", "host_reads", "store.bytes_written", "store.fsyncs")
+
+
+@pytest.fixture(scope="module")
+def traced_runs(sparse_store, tmp_path_factory):
+    """``run_all`` (dense at 64 px) from the sparse store's frames and
+    extraction tables, with tracing on and off: guided matching, clusters
+    of 3 overlapping by 2 (so a merge of two submodels and its
+    refinement), each cluster retried on the host mapper. {on: (model,
+    store, the run's metrics)}."""
+    out = {}
+    for on in (True, False):
+        root = str(tmp_path_factory.mktemp("traced_on" if on else "traced_off") / "store")
+        for t in ("frames", "extraction"):
+            shutil.copytree(os.path.join(sparse_store["root"], t), os.path.join(root, t))
+        cfg = _dense_config(_cfg(root))
+        cfg.matching.guided_matching = True
+        cfg.mapper.cluster_size, cfg.mapper.cluster_overlap = 3, 2
+        cfg.mapper.device_fallback_min_frac = 1.01
+        was = tmetrics.set_tracing(on)
+        try:
+            model = tstages.run_all(cfg, resume=True, device=CPU)
+        finally:
+            tmetrics.set_tracing(was)
+        out[on] = (model, ArtifactStore(root), tmetrics.GLOBAL_METRICS.to_dict())
+    return out
+
+
+def _untraced_keys(metrics):
+    return {stage: {k for k in kv if not k.startswith(("span.", "count."))}
+            for stage, kv in metrics.items()
+            if any(not k.startswith(("span.", "count.")) for k in kv)}
+
+
+def test_tracing_leaves_the_run_unchanged(traced_runs):
+    """The model and every table bitwise the same with tracing on and off;
+    ``metrics.json`` has the same keys but for the spans and counters."""
+    (m_on, st_on, _), (m_off, st_off, _) = traced_runs[True], traced_runs[False]
+    assert m_on.num_registered >= 3
+    assert m_on.registered_image_ids == m_off.registered_image_ids
+    for i in m_on.registered_image_ids:
+        assert np.array_equal(m_on.images[i].qvec, m_off.images[i].qvec)
+        assert np.array_equal(m_on.images[i].tvec, m_off.images[i].tvec)
+    assert m_on.points3D.keys() == m_off.points3D.keys()
+    assert all(np.array_equal(p.xyz, m_off.points3D[k].xyz) for k, p in m_on.points3D.items())
+    assert st_on.list_tables() == st_off.list_tables()
+    for t in st_on.list_tables():
+        a, b = st_on.read_table(t), st_off.read_table(t)
+        assert a.keys() == b.keys(), t
+        for col in a:
+            if isinstance(a[col], list):
+                assert len(a[col]) == len(b[col]), (t, col)
+                assert all(np.array_equal(np.asarray(x), np.asarray(y))
+                           for x, y in zip(a[col], b[col])), (t, col)
+            else:
+                assert np.array_equal(a[col], b[col]), (t, col)
+    j_on, j_off = (json.load(open(os.path.join(s.root, "metrics.json")))
+                   for s in (st_on, st_off))
+    assert _untraced_keys(j_on) == _untraced_keys(j_off)
+    assert not any(k.startswith(("span.", "count.")) for kv in j_off.values() for k in kv)
+
+
+def test_tracing_fills_every_span_and_counter(traced_runs):
+    """With tracing on, every span of the program has a count and seconds
+    in ``metrics.json`` and every counter counts; the mapping stage's
+    spans sit under it. Off, the run records none."""
+    metrics = json.load(open(os.path.join(traced_runs[True][1].root, "metrics.json")))
+    for name in TRACED_SPANS:
+        n = sum(kv.get(f"span.{name}.n", 0) for kv in metrics.values())
+        s = sum(kv.get(f"span.{name}.s", 0) for kv in metrics.values())
+        assert n > 0 and s > 0, name
+    for name in TRACED_COUNTS:
+        assert sum(kv.get(f"count.{name}", 0) for kv in metrics.values()) > 0, name
+    mapping = metrics["mapping"]
+    assert mapping["span.mapping.ba.n"] > 0 and mapping["count.host_reads"] > 0
+    assert mapping["span.mapping.cluster.s"] >= mapping["span.mapping.unpack.s"]
+    assert not any(k.startswith(("span.", "count."))
+                   for kv in traced_runs[False][2].values() for k in kv)

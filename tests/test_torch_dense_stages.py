@@ -42,6 +42,7 @@ from scanner_colmap_tpu_torch.models.reconstruction import Camera, Image, Recons
 from scanner_colmap_tpu_torch.pipeline import ArtifactStore, PipelineConfig, synth
 from scanner_colmap_tpu_torch.pipeline import stages as tstages
 from scanner_colmap_tpu_torch.utils import colmap_io
+from scanner_colmap_tpu_torch.utils import metrics as tmetrics
 
 CPU = torch.device("cpu")
 N_IMAGES, WIDTH, HEIGHT = 4, 160, 120
@@ -298,12 +299,20 @@ def test_run_meshing_stage_on_written_tables(tmp_path):
     cfg = PipelineConfig(store_path=str(tmp_path / "store"))
     cfg.meshing.resolution = 48
     mesh_path = str(tmp_path / "mesh.ply")
-    nfaces = tstages.run_meshing(cfg, store, mesh_path=mesh_path, device=CPU)
+    was = tmetrics.set_tracing(True)     # the TSDF's time: the meshing.tsdf span
+    tmetrics.GLOBAL_METRICS.reset()
+    try:
+        nfaces = tstages.run_meshing(cfg, store, mesh_path=mesh_path, device=CPU)
+        spans = tmetrics.GLOBAL_METRICS.stage(tmetrics.RUN)
+    finally:
+        tmetrics.set_tracing(was)
+        tmetrics.GLOBAL_METRICS.reset()
     assert nfaces > 100
     verts = np.asarray(store.read_table("mesh")["verts"][0])
     assert np.abs(verts[:, 2] - 4.0).max() < 0.1 and os.path.exists(mesh_path)
     meta = store.read_manifest("mesh")["meta"]
-    assert meta["stage"] == "meshing" and meta["tsdf_s"] >= 0
+    assert meta["stage"] == "meshing"
+    assert spans["span.meshing.tsdf.n"] == 1 and spans["span.meshing.tsdf.s"] >= 0
 
 
 def test_dense_stages_on_an_empty_store(tmp_path):

@@ -27,6 +27,7 @@ from scanner_colmap_tpu_torch.ops import two_view as ttv
 from scanner_colmap_tpu_torch.pipeline import stages as tstages
 from scanner_colmap_tpu_torch.pipeline import synth as tsynth
 from scanner_colmap_tpu_torch.utils import config as tconfig
+from scanner_colmap_tpu_torch.utils import metrics as tmetrics
 from scanner_colmap_tpu_torch.utils import store as tstore
 
 CPU = torch.device("cpu")
@@ -66,7 +67,17 @@ def runs(tmp_path_factory):
         mod.run_extraction(cfg, store, **kw)
         mod.run_matching(cfg, store, **kw)
         mod.run_mapping(cfg, store, **kw)
-        out[name] = (cfg, store, mod.run_merge(cfg, store, **kw))
+        if name == "torch":     # the merge's split: its spans
+            was = tmetrics.set_tracing(True)
+            tmetrics.GLOBAL_METRICS.reset()
+            try:
+                out[name] = (cfg, store, mod.run_merge(cfg, store, **kw))
+                out["merge_spans"] = tmetrics.GLOBAL_METRICS.stage(tmetrics.RUN)
+            finally:
+                tmetrics.set_tracing(was)
+                tmetrics.GLOBAL_METRICS.reset()
+        else:
+            out[name] = (cfg, store, mod.run_merge(cfg, store, **kw))
     return out
 
 
@@ -115,7 +126,9 @@ def test_two_cluster_f32_slice_matches_jax(runs):
     assert len(pj & pt) >= 0.9 * len(pj), (len(pj), len(pt), len(pj & pt))
     meta = st.read_manifest("matching")["meta"]
     assert meta["num_banks"] == 1 and meta["bank_images"] > 8
-    assert set(st.read_manifest("models")["meta"]["time_split_s"]) == \
+    spans = runs["merge_spans"]
+    assert {k[len("span.merge."):-len(".n")] for k in spans
+            if k.startswith("span.merge.") and k.endswith(".n")} == \
         {"load", "fold", "graph", "refine"}
     for table in ("matching", "mapping", "models"):
         cj = sj.read_manifest(table)["columns"]
