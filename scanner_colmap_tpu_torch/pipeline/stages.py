@@ -71,7 +71,7 @@ from scanner_colmap_tpu_torch.ops import undistort as ud_ops
 from scanner_colmap_tpu_torch.utils import colmap_io
 from scanner_colmap_tpu_torch.utils import metrics as metrics_lib
 from scanner_colmap_tpu_torch.utils.config import PipelineConfig
-from scanner_colmap_tpu_torch.utils.metrics import span
+from scanner_colmap_tpu_torch.utils.metrics import count, span
 from scanner_colmap_tpu_torch.utils.store import ArtifactStore
 
 log = logging.getLogger(__name__)
@@ -1466,17 +1466,18 @@ def run_prepare_patch_match(cfg: PipelineConfig, store: Optional[ArtifactStore] 
     for iid in sorted(model.registered_image_ids):
         im = model.images[iid]
         cam = model.cameras[im.camera_id]
-        depths = []
         with span("prepare_patch_match.depth_ranges"):
-            for pid in im.point3D_ids:
-                if pid >= 0 and int(pid) in model.points3D:
-                    x_cam = geom.np_pose_transform(im.qvec, im.tvec,
-                                                   model.points3D[int(pid)].xyz)
-                    if x_cam[2] > 0:
-                        depths.append(x_cam[2])
-        if len(depths) < 5:
+            # the observed points in keypoint order, in one pose transform:
+            # each depth is bitwise the per-point transform's
+            ids = np.asarray(im.point3D_ids)
+            pts = model.points3D
+            xyz = np.array([pts[p].xyz for p in ids[ids >= 0].tolist() if p in pts],
+                           np.float64).reshape(-1, 3)
+            z = geom.np_pose_transform(im.qvec, im.tvec, xyz)[:, 2]
+            d = z[z > 0]
+            count("prepare_patch_match.depth_points", len(d))
+        if len(d) < 5:
             continue
-        d = np.asarray(depths)
         item = load(iid, pm.max_image_size, canvas)
         h, w = int(item["valid_hw"][0]), int(item["valid_hw"][1])
         # the camera was built at extraction resolution

@@ -262,7 +262,8 @@ TRACED_SPANS = (
     "prepare_patch_match.depth_ranges", "image.decode", "store.read", "store.write",
     "matching.window", "matching.loop_closure", "matching.verify", "matching.guided",
     "patch_match.map", "meshing.tsdf", "meshing.extract")
-TRACED_COUNTS = ("ba.lm_trials", "host_reads", "store.bytes_written", "store.fsyncs")
+TRACED_COUNTS = ("ba.lm_trials", "host_reads", "store.bytes_written", "store.fsyncs",
+                 "prepare_patch_match.depth_points")
 
 
 @pytest.fixture(scope="module")
