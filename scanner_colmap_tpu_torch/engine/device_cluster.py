@@ -46,6 +46,18 @@ SHAPE_LOG: List[tuple] = []
 # lanes of every batched mapper run (map_clusters_device_batch), in order;
 # cleared and read by run_clustered_mapping
 CHUNK_LOG: List[int] = []
+# a cluster's track capacity per keypoint of its fullest image: at
+# PipelineConfig()'s 2048 features an image, 4 x 2048 is
+# mapper.device_max_points' 8192, the JAX package's default
+TRACKS_PER_FEATURE = 4
+
+
+def track_capacity(cfg: MapperConfig, features: int) -> int:
+    """Tracks a cluster's mapper holds when its fullest image has
+    ``features`` keypoints (at most ``sift.max_num_features``):
+    ``mapper.device_max_points``, or ``TRACKS_PER_FEATURE`` a keypoint
+    where that is more."""
+    return max(cfg.device_max_points, TRACKS_PER_FEATURE * features)
 
 
 def _pair_matches(graph, i: int, j: int) -> np.ndarray:
@@ -246,7 +258,10 @@ def _prepare_cluster(keypoints: Dict[int, np.ndarray], cameras: Dict,
 
     Returns None when the cluster cannot seed a reconstruction (no valid
     initial pair / too few tracks), else a dict of the kernel's input arrays
-    plus the unpacking metadata (members, tracks, share, M, P, T).
+    plus the unpacking metadata (members, tracks, share, M, P, T). Past
+    ``track_capacity`` of the fullest member's keypoints, the shortest
+    tracks are dropped; ``mapping.tracks_dropped`` counts them (0 where
+    none is).
     """
     members = sorted(keypoints.keys())
     n = len(members)
@@ -264,11 +279,13 @@ def _prepare_cluster(keypoints: Dict[int, np.ndarray], cameras: Dict,
                                                 max_track)
     if len(tr_len) < 8:
         return None
-    if len(tr_len) > cfg.device_max_points:
+    cap = track_capacity(cfg, max(len(keypoints[m]) for m in members))
+    count("mapping.tracks_dropped", max(len(tr_len) - cap, 0))
+    if len(tr_len) > cap:
         # keep the longest (most-constrained) tracks
-        top = np.argsort(-tr_len, kind="stable")[: cfg.device_max_points]
+        top = np.argsort(-tr_len, kind="stable")[:cap]
         log.info("device mapper: dropped %d shortest tracks (cap %d)",
-                 len(tr_len) - cfg.device_max_points, cfg.device_max_points)
+                 len(tr_len) - cap, cap)
         tr_img, tr_kp, tr_len = tr_img[top], tr_kp[top], tr_len[top]
     num_tracks = len(tr_len)
 

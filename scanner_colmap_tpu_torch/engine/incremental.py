@@ -34,8 +34,9 @@ from scanner_colmap_tpu_torch.models.reconstruction import (Camera, Image,
                                                             Reconstruction,
                                                             np_reproj_errors)
 from scanner_colmap_tpu_torch.ops import ba, pnp, triangulate
+from scanner_colmap_tpu_torch.ops.two_view import eigh_calls
 from scanner_colmap_tpu_torch.utils.config import MapperConfig
-from scanner_colmap_tpu_torch.utils.metrics import span
+from scanner_colmap_tpu_torch.utils.metrics import count, span
 
 log = logging.getLogger(__name__)
 
@@ -333,10 +334,13 @@ class IncrementalMapper:
                 data[b, t, 9] = 1.0
                 f_sum += self._focal(iid)
             thr_n[b] = self.cfg.filter_max_reproj_error / (f_sum / min(len(track), T))
-        out = triangulate.triangulate_tracks_packed(
-            torch.as_tensor(data, device=self.device),
-            torch.as_tensor(thr_n, device=self.device),
-            math.radians(self.cfg.min_tri_angle_deg)).cpu().numpy()
+        with span("triangulate.dlt"):
+            out = triangulate.triangulate_tracks_packed(
+                torch.as_tensor(data, device=self.device),
+                torch.as_tensor(thr_n, device=self.device),
+                math.radians(self.cfg.min_tri_angle_deg)).cpu().numpy()
+        count("triangulate.tracks", len(tracks))
+        count("triangulate.eigh_calls", eigh_calls(len(tracks)))
         xyz, ok, view_ok = out[:, 0:3], out[:, 3] > 0.5, out[:, 4:] > 0.5
 
         n_new = 0

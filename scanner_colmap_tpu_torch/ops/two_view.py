@@ -42,6 +42,13 @@ MULTIPLE = 8
 
 SUB = 192   # preemptive-scoring subset size
 TOP = 32    # trials rescored on all correspondences per chunk
+# The most matrices one torch.linalg.eigh call is given. On an H100 with
+# torch 2.11 (CUDA 12.8), cuSOLVER's batched eigensolver refuses a larger
+# batch in its buffer query (cusolverDnXsyevBatched_bufferSize:
+# CUSOLVER_STATUS_INVALID_VALUE) whatever the values: it ran 31291 4x4,
+# 29586 9x9 and 28631 12x12 matrices, f64 or f32, and raised at one more
+# (tools/exp_eigh_batch.py). The smallest of the three.
+EIGH_MAX_BATCH = 28631
 
 
 @dataclasses.dataclass
@@ -83,11 +90,24 @@ def _normalize_points(pts: torch.Tensor, mask: torch.Tensor):
     return normed, T
 
 
+def eigh_calls(batch: int) -> int:
+    """``torch.linalg.eigh`` calls ``_smallest_eigvec`` makes for ``batch``
+    matrices."""
+    return max(-(-batch // EIGH_MAX_BATCH), 1)
+
+
 def _smallest_eigvec(A: torch.Tensor) -> torch.Tensor:
-    """Right null vector of A: eigenvector of A^T A, smallest eigenvalue."""
+    """Right null vector of A: eigenvector of A^T A, smallest eigenvalue.
+    A batch above ``EIGH_MAX_BATCH`` matrices is split into calls of at
+    most that many, in order."""
     AtA = torch.einsum("...ki,...kj->...ij", A, A)
-    _, V = torch.linalg.eigh(AtA)
-    return V[..., :, 0]
+    n = AtA.shape[-1]
+    flat = AtA.reshape(-1, n, n)
+    if len(flat) <= EIGH_MAX_BATCH:
+        _, V = torch.linalg.eigh(AtA)
+        return V[..., :, 0]
+    V = torch.cat([torch.linalg.eigh(part)[1] for part in torch.split(flat, EIGH_MAX_BATCH)])
+    return V[..., :, 0].reshape(AtA.shape[:-1])
 
 
 def _null_vec_fast(A: torch.Tensor, iters: int = 2) -> torch.Tensor:
